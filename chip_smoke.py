@@ -33,6 +33,12 @@ sys.path.insert(0, ROOT)
 
 DEVICE = "cuda"
 
+# Peak rates of one H100 SXM for bound_ms: device memory bytes/s (NVIDIA's
+# data sheet) and 32-bit integer multiply-adds/s (64 IMADs per clock per SM,
+# 132 SMs, 1.98 GHz boost clock).
+MEM_BYTES_PER_S = 3.35e12
+IMAD_PER_S = 64 * 132 * 1.98e9
+
 # kernel name -> (source, the TPU kernel it replaces)
 KERNELS = {
     "mont_mul": ("zkmpc_tpu_torch/csrc/mont_mul.cu", "zkmpc_tpu/ops/pallas_fp.py:122"),
@@ -43,6 +49,20 @@ KERNELS = {
 
 def log(msg):
     print(msg, flush=True)
+
+
+def mont_imads(bits):
+    """IMADs of one Montgomery product at `bits`: a w-word CIOS does
+    2w^2 + w word products, each a lo and a hi IMAD."""
+    w = -(-bits // 32)
+    return 2 * (2 * w * w + w)
+
+
+def bound(n_bytes, imads):
+    """(bound_ms, bound_by): the least time for moving n_bytes and doing
+    `imads` multiply-adds on the card, and which of the two sets it."""
+    t_mem, t_ops = n_bytes / MEM_BYTES_PER_S * 1e3, imads / IMAD_PER_S * 1e3
+    return (t_mem, "bytes") if t_mem >= t_ops else (t_ops, "operations")
 
 
 def cuda_time_ms(fn, reps):
@@ -137,36 +157,133 @@ def phase_mont_mul(results):
     a = a.reshape((3, 1 << 14))
     k_ms = cuda_time_ms(lambda: cuda_fp.mont_mul_cuda(FR, b.limbs, a.limbs), 20)
     p_ms = cuda_time_ms(lambda: cuda_fp.mont_mul_plain(FR, b.limbs, a.limbs), 5)
+    n = 3 << 14
+    b_ms, b_by = bound(3 * n * FR.nlimbs * 8, n * mont_imads(FR.p.bit_length()))
     log(f"  K1 FR [3, 2^14] (an NTT stage of the slice): kernel {k_ms:.4f} ms, "
-        f"plain {p_ms:.4f} ms")
-    results["mont_mul"] = dict(max_abs_err=max_err, ms=k_ms, plain_ms=p_ms)
+        f"plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    results["mont_mul"] = dict(max_abs_err=max_err, ms=k_ms, plain_ms=p_ms,
+                               bound_ms=b_ms, bound_by=b_by)
 
 
-def _case_points(g2, device):
-    """All-cases lanes: generic, p == q, q == -p, p at inf, q at inf, both at
-    inf, then a ragged run of generic pairs (1003 lanes in all)."""
+# Limb vectors that are B = 2^15 in most places (value < 2p): the Jacobian z
+# of the "limbs = B" lanes carries them into the kernel's word packing.
+def limbs_at_b(rng, n_limbs=26, width=15):
+    top = 1 if rng.random() < 0.5 else 2
+    return [1 << width if rng.random() < 0.7 else rng.randrange(1 << width)
+            for _ in range(n_limbs - 1)] + [top]
+
+
+def case_points(g2, device, n_lanes=1003, seed=5):
+    """Point-add case lanes with their expected sums from ``spec.curves``.
+
+    Lanes 0-5: generic, p == q, q == -p, p at inf, q at inf, both at inf.
+    Then 8 lanes each of: generic pairs in Jacobian form (x l^2, y l^3, z l)
+    with random l; the same with every coordinate stored as value + p
+    (bound 2); z with limbs equal to B; p == q with z1 != z2; q == -p in
+    Jacobian form.  Then a full 32-lane warp of doublings (p == q, mixed
+    forms) at a multiple of 32, and generic affine pairs up to n_lanes.
+    Returns (p, q, expected affine points, range of the generic tail)."""
+    import numpy as np
     import torch
-    from zkmpc_tpu.spec import curves as SC
     from zkmpc_tpu_torch.ops.curve import SWPoint
-    gen, mul, neg, add = (SC.G2_GEN, SC.g2_mul, SC.g2_neg, SC.g2_add) if g2 else \
-        (SC.G1_GEN, SC.g1_mul, SC.g1_neg, SC.g1_add)
-    make = SWPoint.g2_from_affine_ints if g2 else SWPoint.g1_from_affine_ints
-    base = [mul(gen, k) for k in range(1, 34)]
-    pk = [2, 5, 7, 11, 13, 17] + [3 + (i % 29) for i in range(997)]
-    qk = [9, 5, 7, 19, 23, 29] + [1 + ((7 * i + 3) % 31) for i in range(997)]
-    pa = [base[k - 1] for k in pk]
-    qa = [base[k - 1] for k in qk]
-    qa[2] = neg(pa[2])
-    pinf = [0, 0, 0, 1, 0, 1] + [0] * 997
-    qinf = [0, 0, 0, 0, 1, 1] + [0] * 997
-    p, q = make(pa, device), make(qa, device)
-    p.inf = torch.tensor(pinf, dtype=torch.bool, device=device)
-    q.inf = torch.tensor(qinf, dtype=torch.bool, device=device)
-    exp = []
-    for a, b, ia, ib in zip(pa, qa, pinf, qinf):
-        a, b = (None if ia else a), (None if ib else b)
-        exp.append(b if a is None else a if b is None else add(a, b))
-    return p, q, exp
+    from zkmpc_tpu_torch.ops.fp2 import Fp2Array
+    from zkmpc_tpu_torch.ops.limbs import FQ, FpArray, int_to_limbs, limbs_to_int
+    from zkmpc_tpu_torch.spec import curves as SC
+    rng = random.Random(seed)
+    P, n = FQ.p, FQ.nlimbs
+    if g2:
+        gen, smul, neg, add, F = SC.G2_GEN, SC.g2_mul, SC.g2_neg, SC.g2_add, SC._Fq2Ops
+        parts = lambda v: list(v)                         # noqa: E731
+    else:
+        gen, smul, neg, add, F = SC.G1_GEN, SC.g1_mul, SC.g1_neg, SC.g1_add, SC._FqOps
+        parts = lambda v: [v]                             # noqa: E731
+    base = [smul(gen, k) for k in range(1, 34)]
+
+    def rand_l():
+        return tuple(rng.randrange(1, P) for _ in range(2)) if g2 else rng.randrange(1, P)
+
+    def l_with_b_limbs():
+        """l whose Montgomery limbs are B in most places, with those limbs."""
+        vecs = [limbs_at_b(rng, n) for _ in range(2 if g2 else 1)]
+        ls = [limbs_to_int(v) * FQ.rinv % P for v in vecs]
+        assert all(0 < limbs_to_int(v) < 2 * P and l for v, l in zip(vecs, ls))
+        return (tuple(ls) if g2 else ls[0]), vecs
+
+    def encode(pt, lam=None, plus_p=False, z_limbs=None):
+        """Limb rows [x parts, y parts, z parts] of pt in Jacobian form."""
+        if pt is None:                  # coordinates of G, z = 1
+            pt, lam = base[0], None
+        x, y = pt
+        lam = F.one if lam is None else lam
+        l2 = F.mul(lam, lam)
+        coords = (F.mul(x, l2), F.mul(y, F.mul(l2, lam)), lam)
+        rows = []
+        for ci, v in enumerate(coords):
+            for k, c in enumerate(parts(v)):
+                if ci == 2 and z_limbs is not None:
+                    rows.append(np.asarray(z_limbs[k], dtype=np.int64))
+                    continue
+                m = c * FQ.R % P + (P if plus_p else 0)
+                rows.append(int_to_limbs(m, n))
+        return rows
+
+    lanes = []                      # (p affine, q affine, p rows, q rows)
+
+    def lane(pa, qa, pe=None, qe=None):
+        lanes.append((pa, qa, encode(pa, **(pe or {})), encode(qa, **(qe or {}))))
+
+    def any_form():
+        form = rng.randrange(3)
+        if form == 2:
+            lam, vecs = l_with_b_limbs()
+            return dict(lam=lam, z_limbs=vecs, plus_p=rng.random() < 0.5)
+        return dict(lam=rand_l(), plus_p=form == 1)
+
+    for a, b in ((base[1], base[8]), (base[4], base[4]), (base[6], neg(base[6])),
+                 (None, base[22]), (base[12], None), (None, None)):
+        lane(a, b)
+    for _ in range(8):
+        a, b = base[rng.randrange(33)], base[rng.randrange(33)]
+        if a == b:
+            b = base[(base.index(a) + 1) % 33]
+        lane(a, b, dict(lam=rand_l()), dict(lam=rand_l()))
+    for i in range(8):
+        a, b = base[(3 * i) % 33], base[(3 * i + 5) % 33]
+        lane(a, b, dict(lam=rand_l(), plus_p=True), dict(lam=rand_l(), plus_p=True))
+    for i in range(8):
+        a, b = base[(5 * i + 1) % 33], base[(5 * i + 8) % 33]
+        (la, va), (lb, vb) = l_with_b_limbs(), l_with_b_limbs()
+        lane(a, b, dict(lam=la, z_limbs=va), dict(lam=lb, z_limbs=vb, plus_p=i % 2 == 1))
+    for i in range(8):
+        a = base[(7 * i + 2) % 33]
+        lane(a, a, dict(lam=rand_l(), plus_p=i % 2 == 0), dict(lam=rand_l()))
+    for i in range(8):
+        a = base[(11 * i + 4) % 33]
+        lane(a, neg(a), dict(lam=rand_l()), dict(lam=rand_l(), plus_p=i % 2 == 0))
+    while len(lanes) % 32:
+        lane(base[len(lanes) % 33], base[(len(lanes) + 3) % 33])
+    for i in range(32):
+        a = base[(13 * i + 6) % 33]
+        lane(a, a, any_form(), any_form())
+    tail = len(lanes)
+    while len(lanes) < n_lanes:
+        i = len(lanes)
+        ia, ib = (2 + i) % 29, (7 * i + 3) % 31
+        lane(base[ia], base[ib if ib != ia else ib + 1])
+
+    def point(rows, inf):
+        cols = [FpArray(torch.as_tensor(np.stack([r[k] for r in rows])).to(device), FQ, 2)
+                for k in range(len(rows[0]))]
+        if g2:
+            x, y, z = (Fp2Array(cols[2 * c], cols[2 * c + 1]) for c in range(3))
+        else:
+            x, y, z = cols
+        return SWPoint(x, y, z, torch.tensor(inf, dtype=torch.bool, device=device))
+
+    p = point([ln[2] for ln in lanes], [ln[0] is None for ln in lanes])
+    q = point([ln[3] for ln in lanes], [ln[1] is None for ln in lanes])
+    exp = [add(a, b) for a, b, _, _ in lanes]
+    return p, q, exp, (tail, len(lanes))
 
 
 def _affine_err(got, want):
@@ -186,12 +303,20 @@ def _affine_err(got, want):
     return err
 
 
+# FQ products a lane of the complete add: add-2007-bl is 11 M + 5 S; over
+# Fq2 a Karatsuba M is 3 FQ products and a square 2
+POINT_ADD_PRODUCTS = {"point_add_g1": 16, "point_add_g2": 11 * 3 + 5 * 2}
+# lanes of the timed point-add launch: the Pippenger lane count of the slice
+TIMED_LANES = 32768
+
+
 def phase_point_add(results):
     import torch
     from zkmpc_tpu_torch.ops import cuda_point
+    from zkmpc_tpu_torch.ops.limbs import FQ
     dev = torch.device(DEVICE)
     for g2, name in ((False, "point_add_g1"), (True, "point_add_g2")):
-        p, q, exp = _case_points(g2, dev)
+        p, q, exp, (lo, hi) = case_points(g2, dev)
         got = cuda_point.sw_add_complete_cuda(p, q)
         want = cuda_point.sw_add_complete_plain(p, q)
         torch.cuda.synchronize()
@@ -203,16 +328,31 @@ def phase_point_add(results):
         if ga != exp:
             bad = [i for i, (x, y) in enumerate(zip(ga, exp)) if x != y][:5]
             raise AssertionError(f"{name}: differs from spec.curves at lanes {bad}")
-        # timing at the Pippenger lane count of the slice (L = 32768)
-        idx = torch.arange(32768, device=dev) % 1003
+        # timing at the Pippenger lane count of the slice, on generic finite
+        # pairs: every lane runs the whole add.  The timed launch is checked
+        # first, lane by lane, against the spec.curves sums its lanes repeat.
+        idx = lo + torch.arange(TIMED_LANES, device=dev) % (hi - lo)
         pl = p.map(lambda t: t.index_select(0, idx))
         ql = q.map(lambda t: t.index_select(0, idx))
+        gl = cuda_point.sw_add_complete_cuda(pl, ql).to_affine_ints()
+        el = [exp[lo + i % (hi - lo)] for i in range(TIMED_LANES)]
+        err = max(err, _affine_err(gl, el))
+        if err != 0:
+            bad = [i for i, (x, y) in enumerate(zip(gl, el)) if x != y][:5]
+            raise AssertionError(f"{name}: {TIMED_LANES} lanes differ from spec.curves "
+                                 f"at lanes {bad}")
         k_ms = cuda_time_ms(lambda: cuda_point.sw_add_complete_cuda(pl, ql), 10)
         p_ms = cuda_time_ms(lambda: cuda_point.sw_add_complete_plain(pl, ql), 3)
-        results[name] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms)
-        log(f"phase 3 {name} vs plain and spec: 1003 lanes (all cases + ragged) "
-            f"identical, max_abs_err {err}; 32768 lanes: kernel {k_ms:.3f} ms, "
-            f"plain {p_ms:.3f} ms")
+        nc = 6 if g2 else 3                    # coordinate parts of a point
+        lane_bytes = 3 * nc * FQ.nlimbs * 8 + 3          # P, Q in, sum out; flags
+        b_ms, b_by = bound(TIMED_LANES * lane_bytes, TIMED_LANES * POINT_ADD_PRODUCTS[name] *
+                           mont_imads(FQ.p.bit_length()))
+        results[name] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+                             bound_ms=b_ms, bound_by=b_by)
+        log(f"phase 3 {name} vs plain and spec: {len(exp)} lanes (all cases) "
+            f"identical, max_abs_err {err}; {TIMED_LANES} generic lanes identical to "
+            f"spec.curves: kernel {k_ms:.3f} ms, "
+            f"plain {p_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
 
 
 def phase_fixture():
@@ -341,8 +481,10 @@ def main(argv=None):
     phase_point_add(results)
     phase_fixture()
     launches = phase_slice(args.gates)
-    if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
-        raise AssertionError("the run imported jax")
+    bad = sorted(m for m in sys.modules if m in ("jax", "zkmpc_tpu")
+                 or m.startswith(("jax.", "jaxlib", "zkmpc_tpu.")))
+    if bad:
+        raise AssertionError(f"the run imported JAX or the JAX package: {bad[:5]}")
     log(f"all phases passed in {time.time() - t_start:.1f} s")
     kernels = []
     for name, (src, replaces) in KERNELS.items():
@@ -350,7 +492,8 @@ def main(argv=None):
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": launches.get(name, 0),
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                        "plain_ms": r["plain_ms"]})
+                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"], "library_ms": None})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from zkmpc_tpu.spec import curves as SC
+from chip_smoke import case_points
 from zkmpc_tpu_torch.ops import build as K
 from zkmpc_tpu_torch.ops import cuda_fp, cuda_point
 from zkmpc_tpu_torch.ops.curve import SWPoint, sw_add_complete
@@ -54,32 +54,20 @@ def test_mont_mul_kernel_matches_plain(spec, dev):
     assert torch.equal(got, cuda_fp.mont_mul_plain(spec, a.limbs, b.limbs))
 
 
-def _cases(g2, dev, extra=200):
-    gen, mul, neg = (SC.G2_GEN, SC.g2_mul, SC.g2_neg) if g2 else \
-        (SC.G1_GEN, SC.g1_mul, SC.g1_neg)
-    make = SWPoint.g2_from_affine_ints if g2 else SWPoint.g1_from_affine_ints
-    pk = [2, 3, 5, 7, 11, 13, 17, 19] + [3 + i % 13 for i in range(extra)]
-    qk = [10, 20, 5, 7, 30, 40, 50, 60] + [1 + (5 * i) % 17 for i in range(extra)]
-    pa = [mul(gen, k) for k in pk]
-    qa = [mul(gen, k) for k in qk]
-    qa[3] = neg(pa[3])
-    p, q = make(pa, dev), make(qa, dev)
-    p.inf[5] = p.inf[6] = True
-    q.inf[4] = q.inf[6] = True
-    return p, q
-
-
 @pytest.mark.parametrize("g2", [False, True], ids=["g1", "g2"])
 def test_point_add_kernel_matches_plain(g2, dev):
-    p, q = _cases(g2, dev)
+    """`chip_smoke.case_points`'s lanes: generic, p == q, q == -p, infinity,
+    Jacobian z != 1, values in [p, 2p), limbs equal to B, p == q with
+    z1 != z2, Jacobian q == -p and a full warp of doublings."""
+    p, q, exp, _ = case_points(g2, dev, n_lanes=208)
     K.reset_launches()
     got = sw_add_complete(p, q)
     assert K.LAUNCHES["point_add_g2" if g2 else "point_add_g1"] == 1
     want = cuda_point.sw_add_complete_plain(p, q)
     assert torch.equal(got.inf, want.inf)
     ga = got.to_affine_ints()
-    assert ga == want.to_affine_ints()
-    assert ga[3] is None and ga[6] is None
+    assert ga == want.to_affine_ints() == exp
+    assert ga[2] is None and ga[5] is None
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
@@ -90,6 +78,6 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         cuda_fp.mont_mul(FQ, a.limbs[..., :20], a.limbs[..., :20])
     with pytest.raises(ValueError):
         cuda_fp.mont_mul(FQ, a.limbs, a.limbs.cpu())
-    p, q = _cases(False, dev, extra=0)
+    p, q, _, _ = case_points(False, dev, n_lanes=128)
     with pytest.raises(ValueError):
         cuda_point.point_add(p, SWPoint(q.x, q.y, q.z, q.inf.cpu()))

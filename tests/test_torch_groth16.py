@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from fixtures import make_torch_slice_fixture as MK
+from torch_parity import CPU
 from zkmpc_tpu.ops import limbs as JL
 from zkmpc_tpu.snark import qap as JQ
 from zkmpc_tpu_torch.ops.limbs import FR, FpArray
@@ -22,7 +23,7 @@ torch.set_num_threads(1)
 
 
 def _prove_fixture(fx):
-    dpk = driver.dpk_from_host(fx["doc"])
+    dpk = driver.dpk_from_host(fx["doc"], CPU)
     step, args = driver.make_prove_fn(dpk, MK.N_PARTIES)
 
     def share(name):
@@ -61,7 +62,7 @@ def test_device_matrix_segments_match_reference():
     cols = rng.integers(0, 50, rows.size)
     coeffs = np.asarray([int(c) for c in rng.integers(1, 1000, rows.size)], dtype=object)
     ref = JQ.DeviceMatrix.from_coo(JL.FR, (rows, cols, coeffs), 64)
-    got = TQ.DeviceMatrix.from_coo(FR, (rows, cols, coeffs), 64)
+    got = TQ.DeviceMatrix.from_coo(FR, (rows, cols, coeffs), 64, CPU)
     assert got.nchunks == ref.nchunks == 3
     assert got.max_row_nnz == ref.max_row_nnz
     np.testing.assert_array_equal(got.seg1.numpy(), ref.seg1)

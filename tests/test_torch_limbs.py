@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import fp_to_torch, jspec, limbs_np, rand_ints
+from torch_parity import CPU, fp_to_torch, jspec, limbs_np, rand_ints
 from zkmpc_tpu.ops import fp2 as JF2
 from zkmpc_tpu.ops import limbs as JL
 from zkmpc_tpu.ops.pallas_fp import mont_mul_pallas
@@ -143,7 +143,7 @@ def test_fp2_ops_match_reference():
         arr[i] = tuple(rand_ints(rng, spec.p, 2))
         arr2[i] = tuple(rand_ints(rng, spec.p, 2))
     ja, jb = JF2.Fp2Array.from_int(arr), JF2.Fp2Array.from_int(arr2)
-    ta, tb = TF2.Fp2Array.from_int(arr), TF2.Fp2Array.from_int(arr2)
+    ta, tb = TF2.Fp2Array.from_int(arr, device=CPU), TF2.Fp2Array.from_int(arr2, device=CPU)
 
     def same(t, j):
         for tc, jc in ((t.c0, j.c0), (t.c1, j.c1)):
@@ -171,16 +171,17 @@ def test_ints_to_limbs_roundtrip():
 
 
 def test_port_never_imports_jax():
-    """Importing every module of the port, in a fresh interpreter, loads no
-    part of JAX."""
+    """Importing every module of the port and ``chip_smoke``, in a fresh
+    interpreter, loads no part of JAX and no module of the JAX package."""
     code = (
         "import pkgutil, sys, importlib\n"
         "import zkmpc_tpu_torch as P\n"
         "mods = [m.name for m in pkgutil.walk_packages(P.__path__, 'zkmpc_tpu_torch.')]\n"
-        "for m in mods:\n"
+        "for m in mods + ['chip_smoke']:\n"
         "    importlib.import_module(m)\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib')))\n"
-        "assert len(mods) >= 15, mods\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'zkmpc_tpu')\n"
+        "             or m.startswith(('jax.', 'jaxlib', 'zkmpc_tpu.')))\n"
+        "assert len(mods) >= 21, mods\n"
         "assert not bad, bad\n"
         "print('ok', len(mods))\n")
     env = dict(os.environ, PYTHONPATH=ROOT)
@@ -188,3 +189,37 @@ def test_port_never_imports_jax():
                          text=True, cwd=ROOT, env=env, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok")
+
+
+def test_entry_points_default_to_the_card():
+    """Every function or method of the port that takes ``device`` defaults
+    to the CUDA card; without a card, a call that names no device raises
+    rather than running on the CPU."""
+    import importlib
+    import inspect
+    import pkgutil
+
+    import zkmpc_tpu_torch as P
+    seen = []
+    for info in pkgutil.walk_packages(P.__path__, "zkmpc_tpu_torch."):
+        mod = importlib.import_module(info.name)
+        for _, obj in inspect.getmembers(mod):
+            if getattr(obj, "__module__", None) != info.name:
+                continue
+            members = [obj] if inspect.isfunction(obj) else \
+                list(vars(obj).values()) if inspect.isclass(obj) else []
+            for f in members:
+                f = getattr(f, "__func__", f)       # classmethod, staticmethod
+                if not callable(f):
+                    continue
+                try:
+                    dev = inspect.signature(f).parameters.get("device")
+                except (TypeError, ValueError):
+                    continue
+                if dev is not None and dev.default is not inspect.Parameter.empty:
+                    seen.append(f.__qualname__)
+                    assert dev.default == "cuda", f.__qualname__
+    assert len(seen) >= 20, seen
+    if not torch.cuda.is_available():
+        with pytest.raises((AssertionError, RuntimeError)):
+            TL.FpArray.zeros(TL.FR, (1,))

@@ -10,7 +10,7 @@ import jax
 import numpy as np
 import torch
 
-from torch_parity import fp_to_torch, limbs_np, rand_ints
+from torch_parity import CPU, fp_to_torch, limbs_np, rand_ints
 from zkmpc_tpu.mpc import rand as JR
 from zkmpc_tpu.mpc import share as JS
 from zkmpc_tpu.ops import limbs as JL
@@ -37,7 +37,7 @@ def _shares(rng, vals):
 
 
 def _torch_ctx():
-    return TS.MpcContext(TT.StackedTransport(NP), "semi")
+    return TS.MpcContext(TT.StackedTransport(NP, CPU), "semi")
 
 
 def test_beaver_mul_matches_reference():
@@ -66,7 +66,8 @@ def test_wire_semantics_with_public_values():
     rng = np.random.default_rng(22)
     xs = rand_ints(rng, P, 3)
     with TS.mpc_scope(_torch_ctx()):
-        x = TS.MpcFp(TL.FpArray.from_int(TL.FR, _shares(rng, xs)), TS.SHARED)
+        x = TS.MpcFp(TL.FpArray.from_int(TL.FR, _shares(rng, xs), device=CPU),
+                     TS.SHARED)
         c = TS.MpcFp.const(TL.FR, 5)
         assert list((x + c).reveal().to_ints()[0]) == [(v + 5) % P for v in xs]
         assert list((x - c).reveal().to_ints()[0]) == [(v - 5) % P for v in xs]
@@ -85,18 +86,18 @@ def test_uniform_fp_with_injected_bits_matches_reference():
     k1, k2 = jax.random.split(key)
     bits = [np.asarray(jax.random.bits(k, shape + (TL.FR.nlimbs,), dtype=np.uint32),
                        dtype=np.int64) for k in (k1, k2)]
-    got = TR.uniform_fp(None, TL.FR, shape, bits=bits)
+    got = TR.uniform_fp(None, TL.FR, shape, device=CPU, bits=bits)
     assert got.bound == want.bound
     np.testing.assert_array_equal(got.limbs.numpy(), limbs_np(want.limbs))
-    a = TR.uniform_fp(torch.Generator().manual_seed(1), TL.FR, (64,))
-    b = TR.uniform_fp(torch.Generator().manual_seed(1), TL.FR, (64,))
+    a = TR.uniform_fp(torch.Generator().manual_seed(1), TL.FR, (64,), device=CPU)
+    b = TR.uniform_fp(torch.Generator().manual_seed(1), TL.FR, (64,), device=CPU)
     assert torch.equal(a.limbs, b.limbs)
     assert len(set(a.to_ints().tolist())) == 64
 
 
 def test_rand_shared_injected_and_drawn():
-    inj = TL.FpArray.from_int(TL.FR, np.asarray([[1], [2], [3]], dtype=object)
-                              ).reshape((NP,))
+    inj = TL.FpArray.from_int(TL.FR, np.asarray([[1], [2], [3]], dtype=object),
+                              device=CPU).reshape((NP,))
     with TS.mpc_scope(_torch_ctx()):
         r = TS.rand_shared(None, TL.FR, shares=inj)
         assert r.reveal().to_ints().tolist() == [6, 6, 6]
@@ -110,7 +111,7 @@ def _point_shares(rng, ks):
     r_i summing to k."""
     scal = _shares(rng, ks)
     pts = [[SC.g1_mul(SC.G1_GEN, int(s)) for s in row] for row in scal]
-    flat = TC.SWPoint.g1_from_affine_ints([p for row in pts for p in row])
+    flat = TC.SWPoint.g1_from_affine_ints([p for row in pts for p in row], CPU)
     return flat.reshape((NP, len(ks)))
 
 
@@ -123,11 +124,11 @@ def test_group_shares_reveal_add_and_scale_many():
         pt = TG.MpcSWPoint(_point_shares(rng, ks), TS.SHARED)
         assert pt.reveal()[0].to_affine_ints() == [SC.g1_mul(G, k) for k in ks]
         pub = TG.MpcSWPoint.from_public(TC.SWPoint.g1_from_affine_ints(
-            [SC.g1_mul(G, 9)] * 2))
+            [SC.g1_mul(G, 9)] * 2, CPU))
         assert (pt + pub).reveal()[0].to_affine_ints() == \
             [SC.g1_mul(G, k + 9) for k in ks]
-        x = [TS.MpcFp(TL.FpArray.from_int(TL.FR, _shares(rng, [v])), TS.SHARED)
-             for v in xs]
+        x = [TS.MpcFp(TL.FpArray.from_int(TL.FR, _shares(rng, [v]), device=CPU),
+                      TS.SHARED) for v in xs]
         pts = [TG.MpcSWPoint(_point_shares(rng, [k]), TS.SHARED) for k in ks]
         out = TG.scale_many([(pts[0], x[0]), (pts[1], x[1])])
         for o, k, v in zip(out, ks, xs):

@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import fp_to_torch, rand_ints
+from torch_parity import CPU, fp_to_torch, rand_ints
 from zkmpc_tpu.ops import limbs as JL
 from zkmpc_tpu.ops import ntt as JN
 from zkmpc_tpu.spec import curves as SC
@@ -33,7 +33,7 @@ def test_ntt_matches_reference():
     rng = np.random.default_rng(11)
     vals = np.asarray(rand_ints(rng, TL.FR.p, 3 * n), dtype=object).reshape(3, n)
     x = JL.FpArray.from_int(JL.FR, vals)
-    jd, td = JN.Domain(JL.FR, n), TN.Domain(TL.FR, n)
+    jd, td = JN.Domain(JL.FR, n), TN.Domain(TL.FR, n, CPU)
     tx = fp_to_torch(x)
     # fft and coset_ifft run the butterflies with both twiddle sets and both
     # permutations; ifft and coset_fft compose the same pieces
@@ -69,14 +69,14 @@ def _msm_case(group, n, seed, nbits=64):
     for p, k in zip(aff, ks):
         if p is not None:
             exp = add(exp, mul(p, k))
-    return make(aff), ks, exp
+    return make(aff, CPU), ks, exp
 
 
 @pytest.mark.parametrize("group,n,nbits", [(G1, 20, 64), (G1, 40, 64), (G2, 20, 32)],
                          ids=["g1-20", "g1-40", "g2-20"])
 def test_bucketed_msm_matches_spec(group, n, nbits):
     pts, ks, exp = _msm_case(group, n, seed=n, nbits=nbits)
-    sc = TL.FpArray.from_int(TL.FR, np.asarray(ks, dtype=object))
+    sc = TL.FpArray.from_int(TL.FR, np.asarray(ks, dtype=object), device=CPU)
     out = sw_msm_bucketed(pts, sc, c=4, nbits=nbits)
     assert out.reshape((1,)).to_affine_ints() == [exp]
 
@@ -87,7 +87,7 @@ def test_msm_batched_scalars(n, nbits):
     (one 8-bit window keeps it short), N = 6 the ladder path."""
     pts, ks, _ = _msm_case(G1, n, seed=3, nbits=nbits)
     ks2 = [(3 * k + 1) % 2**nbits for k in ks]
-    sc = TL.FpArray.from_int(TL.FR, np.asarray([ks, ks2], dtype=object))
+    sc = TL.FpArray.from_int(TL.FR, np.asarray([ks, ks2], dtype=object), device=CPU)
     got = TM.sw_msm(pts, sc, nbits=nbits).to_affine_ints()
     aff = pts.to_affine_ints()
     want = []
@@ -108,7 +108,7 @@ def test_msm_multi_matches_separate_msms(sizes, nbits):
     cases = [_msm_case(G1, n, seed=20 + n, nbits=nbits) for n in sizes]
     got = TM.sw_msm_multi(
         [c[0] for c in cases],
-        [TL.FpArray.from_int(TL.FR, np.asarray([c[1]], dtype=object))
+        [TL.FpArray.from_int(TL.FR, np.asarray([c[1]], dtype=object), device=CPU)
          for c in cases], nbits=nbits)
     for out, (_, _, exp) in zip(got, cases):
         assert out.to_affine_ints() == [exp]

@@ -17,6 +17,9 @@ from zkmpc_tpu_torch.ops import curve as TC
 from zkmpc_tpu_torch.ops import fp2 as TF2
 from zkmpc_tpu_torch.ops import limbs as TL
 
+# the port's entry points default to the CUDA card; the CPU tests name the CPU
+CPU = torch.device("cpu")
+
 SPECS = {s.name: (getattr(JL, k), s) for k, s in
          (("FR", TL.FR), ("FQ", TL.FQ), ("EDFR", TL.EDFR), ("MNT4Q", TL.MNT4Q))}
 

@@ -30,7 +30,7 @@ def draw_bits(generator: torch.Generator, spec: FieldSpec, shape):
                          generator=generator, dtype=_I64)
 
 
-def uniform_fp(generator, spec: FieldSpec, shape=(), device="cpu",
+def uniform_fp(generator, spec: FieldSpec, shape=(), device="cuda",
                bits=None) -> FpArray:
     """Uniform field elements (Montgomery domain) with negligible bias.
 

@@ -18,6 +18,7 @@ import torch
 
 from ..ops.limbs import FieldSpec, FpArray, _resolve2
 from ..parallel import transport as T
+from ..spec import curves as SC
 from . import rand as R
 
 PUBLIC = "public"
@@ -255,8 +256,6 @@ class DummyTripleSource:
     def group_triples(self, P, scalar_spec):
         """Group triple (a, B, C = a*B) with a = 1 and B = the group
         generator held by the leader; batch shape matches P."""
-        from zkmpc_tpu.spec import curves as SC
-
         from ..ops.curve import SWPoint
         from ..ops.fp2 import Fp2Array
         from ..ops.msm import _bcast_sw

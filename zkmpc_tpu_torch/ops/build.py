@@ -1,8 +1,9 @@
 """Builds and loads the hand-written CUDA kernels of ``zkmpc_tpu_torch/csrc``.
 
-The kernels have a plain C interface and are compiled by ``nvcc`` into one
-shared library, loaded with ``ctypes`` (no PyTorch headers, so a build takes
-seconds).  The build happens at first use, into
+The kernels have a plain C interface and are compiled by ``nvcc`` (one
+process per source file, all started together, then one link) into one
+shared library, loaded with ``ctypes`` (no PyTorch headers).  The build
+happens at first use, into
 ``<repo>/build/zkmpc_tpu_torch/<hash>/``, keyed by a hash of the ``csrc``
 sources and the compiler flags: a changed source rebuilds.  A failed build
 raises.
@@ -27,6 +28,7 @@ BUILD_ROOT = os.path.join(os.path.dirname(PKG_DIR), "build", "zkmpc_tpu_torch")
 LIB_NAME = "libzkmpc_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+_COMPILE_FLAGS = [f for f in NVCC_FLAGS if f != "-shared"]
 
 LAUNCHES: collections.Counter = collections.Counter()
 
@@ -70,14 +72,28 @@ def build() -> str:
     if os.path.isfile(lib_path):
         return lib_path
     os.makedirs(out_dir, exist_ok=True)
-    tmp = f"{lib_path}.tmp{os.getpid()}"
-    cu = [p for p in _sources() if p.endswith(".cu")]
-    cmd = [_nvcc()] + NVCC_FLAGS + ["-I", CSRC_DIR, "-o", tmp] + cu
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    tag = f"tmp{os.getpid()}"
+    nvcc = _nvcc()
+    procs = []
+    for src in (p for p in _sources() if p.endswith(".cu")):
+        obj = os.path.join(out_dir, f"{os.path.basename(src)}.{tag}.o")
+        cmd = [nvcc] + _COMPILE_FLAGS + ["-I", CSRC_DIR, "-c", "-o", obj, src]
+        procs.append((obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT, text=True)))
+    logs = [(obj, proc.communicate()[0], proc.returncode) for obj, proc in procs]
     with open(os.path.join(out_dir, "ptxas.log"), "w") as f:
-        f.write(proc.stdout + proc.stderr)
+        f.write("".join(log for _, log, _ in logs))
+    for obj, log, rc in logs:
+        if rc != 0:
+            raise RuntimeError(f"nvcc failed ({rc}) on {obj}:\n{log[-4000:]}")
+    tmp = f"{lib_path}.{tag}"
+    objs = [obj for obj, _, _ in logs]
+    proc = subprocess.run([nvcc] + NVCC_FLAGS + ["-o", tmp] + objs,
+                          capture_output=True, text=True)
+    for obj in objs:
+        os.remove(obj)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
                            f"{proc.stderr[-4000:]}")
     os.replace(tmp, lib_path)
     return lib_path

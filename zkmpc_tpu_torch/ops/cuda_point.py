@@ -6,10 +6,10 @@ Port of ``zkmpc_tpu/ops/pallas_point.py`` (`_point_add_kernel`,
 `sw_add_complete_pallas`).  ``point_add`` launches ``csrc/point_add.cu`` for
 CUDA tensors, one thread per lane, at every batch size; for CPU tensors it
 runs ``sw_add_complete_plain``, the reference's ``curve.sw_add_complete``
-formula in `FpArray`/`Fp2Array` ops.  The kernel tightens where the
-reference's in-kernel ``KCtx`` does, so its outputs are the same points
-(compare affine values: the fused and unfused formulas may tighten at
-different places and leave different Jacobian limbs).
+formula in `FpArray`/`Fp2Array` ops.  The kernel works on 32-bit words at
+Montgomery radix 2^384 and returns canonical limbs, so its outputs are the
+same points as the plain twin's (compare affine values), not the same
+Jacobian limbs.
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ from . import build as K
 from .limbs import FQ, FieldSpec
 
 _I64 = torch.int64
-_SUB_BOUNDS = 17        # sub_digits rows for bounds 0..16 (KCtx.sub)
+NWORDS = 12             # 32-bit words of an FQ element inside the kernel
 
 
 def sw_add_complete_plain(p, q):
@@ -40,18 +40,24 @@ def sw_add_complete_plain(p, q):
     return out
 
 
-def _kernel_consts(spec: FieldSpec, device):
-    key = ("point_consts", str(device))
-    t = spec._dev.get(key)
+def _words(x: int, n: int = NWORDS) -> list:
+    """Nonnegative int -> n 32-bit words, low word first."""
+    return [(x >> (32 * j)) & 0xFFFFFFFF for j in range(n)]
+
+
+def _kernel_consts(spec: FieldSpec):
+    """The kernel's field constants, int64 [2 * NWORDS + 2] in host memory
+    (the C entry copies them into the kernel's parameters): p and 2p as
+    32-bit words, -p^-1 mod 2^32 (the CIOS reduction factor) and p^-1 mod 64
+    (the radix change 2^390 -> 2^384 at load)."""
+    t = spec._dev.get("point_consts")
     if t is None:
-        digits = [torch.as_tensor(spec.sub_digits(b)[0]) for b in range(_SUB_BOUNDS)]
-        ks = torch.as_tensor([spec.sub_digits(b)[1] for b in range(_SUB_BOUNDS)])
-        t = torch.cat([torch.as_tensor(spec.p_limbs),
-                       torch.as_tensor(spec.pprime_limbs),
-                       torch.as_tensor(spec.one_limbs)] + digits +
-                      [ks, torch.as_tensor([spec.mul_bound_budget])])
-        t = t.to(dtype=_I64, device=device)
-        spec._dev[key] = t
+        p = spec.p
+        assert 4 * p < 1 << (32 * NWORDS), "values below 2p must stay below R/2"
+        vals = _words(p) + _words(2 * p) + [-pow(p, -1, 1 << 32) % (1 << 32),
+                                          pow(p, -1, 64)]
+        t = torch.tensor(vals, dtype=_I64)
+        spec._dev["point_consts"] = t
     return t
 
 
@@ -64,7 +70,7 @@ def sw_add_complete_cuda(p, q):
     """Launch K2 (Fp coordinates) or K3 (Fp2 coordinates) on CUDA points.
 
     Inputs are tightened to bound <= 2 first (as the Pallas wrapper does);
-    outputs have bound-2 coordinates."""
+    outputs have canonical limbs and bound 2."""
     from .curve import SWPoint
     from .fp2 import Fp2Array
     from .limbs import FpArray
@@ -104,7 +110,7 @@ def sw_add_complete_cuda(p, q):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.zk_point_add(n, int(g2), pc.data_ptr(), pinf.data_ptr(),
                               qc.data_ptr(), qinf.data_ptr(), out.data_ptr(),
-                              oinf.data_ptr(), _kernel_consts(spec, dev).data_ptr(),
+                              oinf.data_ptr(), _kernel_consts(spec).data_ptr(),
                               size, stream)
         K.check(rc, "point_add")
         K.LAUNCHES["point_add_g2" if g2 else "point_add_g1"] += 1

@@ -100,7 +100,7 @@ class SWPoint:
     # ------------------------------------------------------------ constructors
 
     @classmethod
-    def g1_from_affine_ints(cls, xy_list, device="cpu"):
+    def g1_from_affine_ints(cls, xy_list, device="cuda"):
         """[(x, y) or None, ...] -> batched G1 points."""
         xs = np.asarray([0 if t is None else t[0] for t in xy_list], dtype=object)
         ys = np.asarray([1 if t is None else t[1] for t in xy_list], dtype=object)
@@ -112,7 +112,7 @@ class SWPoint:
         return cls(x, y, z, inf)
 
     @classmethod
-    def g2_from_affine_ints(cls, xy_list, device="cpu"):
+    def g2_from_affine_ints(cls, xy_list, device="cuda"):
         """[((x0,x1),(y0,y1)) or None, ...] -> batched G2 points."""
         def comp(i, j, default):
             return np.asarray(

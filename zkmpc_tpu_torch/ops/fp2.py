@@ -28,7 +28,7 @@ class Fp2Array:
     # ------------------------------------------------------------ constructors
 
     @classmethod
-    def from_int(cls, values, shape=None, device="cpu"):
+    def from_int(cls, values, shape=None, device="cuda"):
         """values: object array of (c0, c1) int tuples."""
         arr = np.asarray(values, dtype=object)
         c0 = np.vectorize(lambda t: t[0], otypes=[object])(arr)
@@ -37,11 +37,11 @@ class Fp2Array:
                    FpArray.from_int(FQ, c1, shape, device))
 
     @classmethod
-    def zeros(cls, shape=(), device="cpu"):
+    def zeros(cls, shape=(), device="cuda"):
         return cls(FpArray.zeros(FQ, shape, device), FpArray.zeros(FQ, shape, device))
 
     @classmethod
-    def ones(cls, shape=(), device="cpu"):
+    def ones(cls, shape=(), device="cuda"):
         return cls(FpArray.ones(FQ, shape, device), FpArray.zeros(FQ, shape, device))
 
     def to_ints(self):

@@ -19,7 +19,7 @@ import functools
 import numpy as np
 import torch
 
-from zkmpc_tpu import params as _P
+from .. import params as _P
 
 W = 15
 B = 1 << W
@@ -328,7 +328,7 @@ class FpArray:
     # ------------------------------------------------------------ constructors
 
     @classmethod
-    def from_int(cls, spec: FieldSpec, values, shape=None, device="cpu"):
+    def from_int(cls, spec: FieldSpec, values, shape=None, device="cuda"):
         """Host ints -> Montgomery-form FpArray (bound 1) on ``device``."""
         arr = np.asarray(values, dtype=object)
         if shape is not None:
@@ -340,12 +340,12 @@ class FpArray:
         return cls(t.to(device), spec, 1)
 
     @classmethod
-    def zeros(cls, spec: FieldSpec, shape=(), device="cpu"):
+    def zeros(cls, spec: FieldSpec, shape=(), device="cuda"):
         return cls(torch.zeros(tuple(shape) + (spec.nlimbs,), dtype=_I64,
                                device=device), spec, 1)
 
     @classmethod
-    def ones(cls, spec: FieldSpec, shape=(), device="cpu"):
+    def ones(cls, spec: FieldSpec, shape=(), device="cuda"):
         limbs = spec.const("one_limbs", device).expand(
             tuple(shape) + (spec.nlimbs,))
         return cls(limbs, spec, 1)

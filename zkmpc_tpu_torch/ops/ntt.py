@@ -16,8 +16,7 @@ import functools
 import numpy as np
 import torch
 
-from zkmpc_tpu.spec import field as specfield
-
+from ..spec import field as specfield
 from .limbs import FieldSpec, FpArray
 
 
@@ -55,7 +54,7 @@ class Domain:
 
     _cache: dict = {}
 
-    def __new__(cls, spec: FieldSpec, n: int, device="cpu"):
+    def __new__(cls, spec: FieldSpec, n: int, device="cuda"):
         key = (spec, n, str(torch.device(device)))
         if key in cls._cache:
             return cls._cache[key]

@@ -63,7 +63,7 @@ class StackedTransport(Transport):
 
     kind = "stacked"
 
-    def __init__(self, n_parties: int, device="cpu"):
+    def __init__(self, n_parties: int, device="cuda"):
         super().__init__()
         self.n_parties = n_parties
         self.device = torch.device(device)

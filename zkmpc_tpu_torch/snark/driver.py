@@ -39,7 +39,7 @@ def build_wide_mul_circuit(cs: ConstraintSystem, a: MpcFp, b: MpcFp):
     return out_pub
 
 
-def synthesize_cs(n_gates: int, n_parties: int, device="cpu") -> ConstraintSystem:
+def synthesize_cs(n_gates: int, n_parties: int, device="cuda") -> ConstraintSystem:
     """Build the wide-mul circuit structure (dummy public assignment)."""
     t = T.StackedTransport(n_parties, device)
     with mpc_scope(MpcContext(t, backend="semi")):
@@ -52,7 +52,7 @@ def synthesize_cs(n_gates: int, n_parties: int, device="cpu") -> ConstraintSyste
     return cs
 
 
-def synthesize(n_gates: int, n_parties: int, seed: int = 1, device="cpu"):
+def synthesize(n_gates: int, n_parties: int, seed: int = 1, device="cuda"):
     """One-time synthesis + setup (host setup_params, device scalar muls).
     Returns the device proving key."""
     cs = synthesize_cs(n_gates, n_parties, device)
@@ -65,7 +65,7 @@ def expected_instance(n_gates: int):
     return [1, s]
 
 
-def deal(vals, n_parties: int, device="cpu"):
+def deal(vals, n_parties: int, device="cuda"):
     """Additive shares on the host: party 0 holds the values, the rest 0."""
     arr = np.zeros((n_parties, len(vals)), dtype=object)
     arr[0, :] = vals
@@ -157,7 +157,7 @@ def pk_from_host(fields: dict) -> groth16.ProvingKey:
         matrices_coo=mats)
 
 
-def dpk_from_host(doc, device="cpu") -> groth16.DeviceProvingKey:
+def dpk_from_host(doc, device="cuda") -> groth16.DeviceProvingKey:
     """The port's DeviceProvingKey on ``device`` from the host layout of the
     reference's ``dpk_to_host``: ``doc["pts"][name]`` = (coord, coord, coord,
     inf) with coord ("fp", uint32 limbs) or ("fp2", c0 limbs, c1 limbs), and

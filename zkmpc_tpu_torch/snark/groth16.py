@@ -8,7 +8,7 @@ Port of ``zkmpc_tpu/snark/groth16.py``:
   round), the fused G1 MSM and the G2 MSM over shared scalars, group-Beaver
   products for s*A and r*B1, and the final proof reveal.
 - `verify` is the standard pairing check on the opened proof, on the
-  jax-free host pairing (`zkmpc_tpu.spec.pairing`).
+  host pairing (`spec.pairing`).
 """
 
 from __future__ import annotations
@@ -18,11 +18,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from zkmpc_tpu import params
-from zkmpc_tpu.spec import curves as SC
-from zkmpc_tpu.spec import field as SF
-from zkmpc_tpu.spec import pairing as SP
-
+from .. import params
+from ..compat import ark as A_
 from ..mpc import share as MS
 from ..mpc.group import MpcSWPoint, mpc_msm, mpc_msm_many, scale_sum
 from ..mpc.share import MpcFp
@@ -31,6 +28,9 @@ from ..ops import msm as OM
 from ..ops.curve import SWPoint
 from ..ops.limbs import FR, FpArray
 from ..ops.ntt import Domain
+from ..spec import curves as SC
+from ..spec import field as SF
+from ..spec import pairing as SP
 from .qap import DeviceMatrix, witness_map
 from .r1cs import ConstraintSystem
 
@@ -72,7 +72,7 @@ class DeviceProvingKey:
     POINTS = ("a_query", "b_g1_query", "b_g2_query", "h_query", "l_query",
               "alpha_g1", "beta_g1", "beta_g2", "delta_g1", "delta_g2")
 
-    def __init__(self, pk: ProvingKey, device="cpu"):
+    def __init__(self, pk: ProvingKey, device="cuda"):
         self.pk = pk
         self.device = torch.device(device)
         g1 = lambda pts: SWPoint.g1_from_affine_ints(pts, device)  # noqa: E731
@@ -103,8 +103,7 @@ def _domain_size(cs: ConstraintSystem) -> int:
 
 def _toxic_waste(seed: int):
     """alpha, beta, gamma, delta, tau via ark `Fp::rand` on a ChaCha12
-    StdRng stream (`zkmpc_tpu.compat.ark`)."""
-    from zkmpc_tpu.compat import ark as A_
+    StdRng stream (`compat.ark`)."""
     rng = A_.seeded_rng(seed)
     return tuple(A_.fr_rand(rng) for _ in range(5))
 
@@ -149,7 +148,7 @@ def _fixed_base_muls(gen_affine, g2: bool, scalars, device):
     return OC.sw_scalar_mul(OM._bcast_sw(base[0], s.shape), s)
 
 
-def device_setup(cs: ConstraintSystem, seed: int = 0, device="cpu"
+def device_setup(cs: ConstraintSystem, seed: int = 0, device="cuda"
                  ) -> DeviceProvingKey:
     """Full setup with the query scalar-muls batched on ``device``."""
     sp = setup_params(cs, seed)
@@ -196,7 +195,7 @@ def device_setup(cs: ConstraintSystem, seed: int = 0, device="cpu"
     return dpk
 
 
-def device_matrices_from_pk(pk: ProvingKey, device="cpu"):
+def device_matrices_from_pk(pk: ProvingKey, device="cuda"):
     A, B, C = pk.matrices_coo
     n = pk.domain_n
     return tuple(DeviceMatrix.from_coo(FR, mat, n, device) for mat in (A, B, C))

@@ -25,7 +25,7 @@ class DeviceMatrix:
     CHUNK = 1024
 
     def __init__(self, spec, rows, cols, coeffs_int, n_rows, max_row_nnz,
-                 device="cpu"):
+                 device="cuda"):
         self.spec = spec
         self.device = torch.device(device)
         self.rows = torch.as_tensor(np.asarray(rows, dtype=np.int64), device=device)
@@ -36,7 +36,7 @@ class DeviceMatrix:
         self.max_row_nnz = max_row_nnz
 
     @classmethod
-    def from_coo(cls, spec, coo, n_rows, device="cpu"):
+    def from_coo(cls, spec, coo, n_rows, device="cuda"):
         rows, cols, coeffs = coo
         rows = np.asarray(rows, dtype=np.int64)
         max_nnz = int(np.bincount(rows).max()) if len(rows) else 1
