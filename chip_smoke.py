@@ -80,6 +80,26 @@ def cuda_time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps, match=None):
+    """Mean device time of fn() over reps calls, from torch.profiler's
+    records of the kernels it ran: those whose name contains `match`, or all
+    of them.  Unlike `cuda_time_ms`, no host time between launches counts."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(ev.time_range.elapsed_us() for ev in prof.events()
+             if ev.device_type == torch.autograd.DeviceType.CUDA
+             and (match is None or match in ev.name))
+    if us <= 0:
+        raise AssertionError(f"the profiler recorded no device time for {match or 'fn'}")
+    return us / reps / 1e3
+
+
 def phase_card():
     import torch
     from zkmpc_tpu_torch.ops import build as K
@@ -112,13 +132,118 @@ def _to_ints(spec, limbs):
     return [int(v) for v in FpArray(limbs, spec, 2).to_ints().reshape(-1)]
 
 
+def k1_edge_limbs(spec, c):
+    """Limbs B+1 from the bottom up while the value stays below c*p; the
+    next limb as large as that bound allows; the rest 0."""
+    import numpy as np
+    from zkmpc_tpu_torch.ops.limbs import B
+    n, bound = spec.nlimbs, c * spec.p
+    limbs, val = [0] * n, 0
+    for i in range(n):
+        limbs[i] = min(B + 1, (bound - 1 - val) // B ** i)
+        val += limbs[i] * B ** i
+        if limbs[i] < B + 1:
+            break
+    return np.asarray(limbs, dtype=np.int64)
+
+
+def k1_cases(spec, seed):
+    """K1's hard inputs, each pair within the contract (a < c1*p, b < c2*p,
+    c1*c2*p <= R/2): [(name, a limbs [k, n], b limbs [k, n])], int64 numpy.
+    0, 1, p-1 and 2p-1 against each other; pairs at the contract's edge
+    (c1*c2 as large as the budget allows) with values c*p - 1, random ones
+    and limbs B+1 wherever the bound allows; runs of all-ones 32-bit words,
+    whose carries run the length of a chain."""
+    import math
+
+    import numpy as np
+    from zkmpc_tpu_torch.ops.limbs import int_to_limbs
+    p, n = spec.p, spec.nlimbs
+    budget = spec.mul_bound_budget
+    rng = np.random.default_rng(seed)
+
+    def below(bound, k):
+        return [int.from_bytes(rng.bytes(bound.bit_length() // 8 + 8), "little") % bound
+                for _ in range(k)]
+
+    def lim(vals):
+        return np.stack([int_to_limbs(v, n) for v in vals])
+
+    small = [0, 1, p - 1, 2 * p - 1]
+    out = [("small", lim([x for x in small for _ in small]),
+            lim([y for _ in small for y in small]))]
+    c_sq = math.isqrt(budget)
+    for c1, c2 in ((budget, 1), (1, budget), (c_sq, budget // c_sq), (2, 2)):
+        a = np.concatenate([lim([c1 * p - 1] + below(c1 * p, 6)), k1_edge_limbs(spec, c1)[None]])
+        b = np.concatenate([lim([c2 * p - 1] + below(c2 * p, 6)), k1_edge_limbs(spec, c2)[None]])
+        out.append((f"edge {c1}x{c2}", a, b))
+        out.append((f"edge {c1}x{c2} reversed", a[::-1].copy(), b))
+    w = -(-15 * n // 32)
+    top = 1 << (32 * (w - 1))
+    ones = [top - 1, top - (1 << 32), top - (1 << (32 * (w // 2))), top // 2 - 1]
+    c1 = (top - 1) // p + 1
+    c2 = min(c1, budget // c1)
+    partners = [v for v in ones if v < c2 * p] + [c2 * p - 1]
+    out.append(("all-ones words", lim([x for x in ones for _ in partners]),
+                lim([y for _ in ones for y in partners])))
+    return out
+
+
+def check_k1(spec, got, want):
+    """K1's output against the plain version's on the same inputs: equal
+    modulo p, below 2p, every limb below 2^15.  Returns the largest
+    difference of the two canonical (below p) limb vectors: 0."""
+    import torch
+    from zkmpc_tpu_torch.ops.limbs import _canonicalize_lt2p, _geq, int_to_limbs
+    if got.shape != want.shape or not got.is_contiguous():
+        raise AssertionError(f"K1 {spec.name}: output shape {tuple(got.shape)}")
+    if bool(((got < 0) | (got >= 1 << 15)).any()):
+        raise AssertionError(f"K1 {spec.name}: a limb outside [0, 2^15)")
+    two_p = torch.as_tensor(int_to_limbs(2 * spec.p, spec.nlimbs), device=got.device)
+    if bool(_geq(got, two_p).any()):
+        raise AssertionError(f"K1 {spec.name}: a value at or above 2p")
+    err = int((_canonicalize_lt2p(spec, got) - _canonicalize_lt2p(spec, want)).abs().max())
+    if err:
+        raise AssertionError(f"K1 {spec.name}: values differ from the plain version mod p")
+    return err
+
+
+def k1_views(spec, dev, seed):
+    """[(name, a, b)] of strided and broadcast operands as the main path
+    makes them: a sliced non-contiguous a; an NTT stage's odd half (a view of
+    [3, n/m, m] elements) times the stage's [m/2] twiddles, at an inner and
+    at the last stage; [3, 1] x [1, 5].  Random values below 2p."""
+    import torch
+    _, x = _rand_fp(spec, 3 * 4096, random.Random(seed), dev)
+    x2 = (x + x).limbs.reshape(3, 4096, spec.nlimbs)
+    _, tw = _rand_fp(spec, 2048, random.Random(seed + 1), dev)
+    out = [("sliced a", x2[:, 1::3, :], x.limbs.reshape(3, 4096, -1)[:, :1365, :])]
+    for m in (64, 4096):
+        y = x2.reshape(3, 4096 // m, m, spec.nlimbs)
+        out.append((f"NTT odd view m={m} x twiddles", y[..., m // 2:, :], tw.limbs[:m // 2]))
+    out.append(("[3, 1] x [1, 5]", x2[0, :3, None, :], x.limbs[None, 7:12, :]))
+    assert not out[0][1].is_contiguous() and not out[1][1].is_contiguous()
+    return out
+
+
 def phase_mont_mul(results):
     import torch
+    from zkmpc_tpu_torch.ops import build as K
     from zkmpc_tpu_torch.ops import cuda_fp
-    from zkmpc_tpu_torch.ops.limbs import FQ, FR, MNT4Q
+    from zkmpc_tpu_torch.ops.limbs import FQ, FR, MNT4Q, limbs_to_int
     dev = torch.device(DEVICE)
     rng = random.Random(1)
     max_err = 0
+
+    def one_launch(spec, name, a, b):
+        """K1 through the wrapper: exactly one launch and no operand copy."""
+        K.reset_launches()
+        got = cuda_fp.mont_mul(spec, a, b)
+        torch.cuda.synchronize()
+        if dict(K.LAUNCHES) != {"mont_mul": 1}:
+            raise AssertionError(f"K1 {spec.name} {name}: launches {dict(K.LAUNCHES)}")
+        return got, check_k1(spec, got, cuda_fp.mont_mul_plain(spec, a, b))
+
     for spec in (FR, FQ, MNT4Q):
         for size in (1, 1000, 65537):
             xs, a = _rand_fp(spec, size, rng, dev)
@@ -128,13 +253,8 @@ def phase_mont_mul(results):
                      ("relaxed", a2.limbs, b.limbs, 2, False),
                      ("const-b", a2.limbs, b.limbs[0], 2, True)]
             for name, la, lb, scale, const in cases:
-                got = cuda_fp.mont_mul_cuda(spec, la, lb)
-                want = cuda_fp.mont_mul_plain(spec, la, lb)
-                torch.cuda.synchronize()
-                max_err = max(max_err, int((got - want).abs().max().item()))
-                if not torch.equal(got, want):
-                    raise AssertionError(f"K1 {spec.name} {name} n={size}: "
-                                         f"limbs differ from the plain version")
+                got, err = one_launch(spec, name, la, lb)
+                max_err = max(max_err, err)
                 # a sample against host ints: REDC(xR * yR) = xyR
                 k = min(size, 8)
                 vals = _to_ints(spec, got[:k])
@@ -142,25 +262,55 @@ def phase_mont_mul(results):
                     y = ys[0] if const else ys[i]
                     if vals[i] != scale * xs[i] * y % spec.p:
                         raise AssertionError(f"K1 {spec.name} {name}: sample {i}")
-    log(f"phase 2 K1 vs plain: FR/FQ/MNT4Q x canonical/relaxed/const-b x "
-        f"n=1/1000/65537 bit-identical, host samples agree; max_abs_err {max_err}")
+        for name, la, lb in k1_cases(spec, seed=2):
+            a, b = torch.as_tensor(la, device=dev), torch.as_tensor(lb, device=dev)
+            got, err = one_launch(spec, name, a, b)
+            max_err = max(max_err, err)
+            for ra, rb, rg in zip(la, lb, got.cpu().numpy()):       # host ints
+                want = limbs_to_int(ra) * limbs_to_int(rb) * spec.rinv % spec.p
+                if limbs_to_int(rg) % spec.p != want:
+                    raise AssertionError(f"K1 {spec.name} {name}: differs from host ints")
+        for name, a, b in k1_views(spec, dev, seed=3):
+            _, err = one_launch(spec, name, a, b)
+            max_err = max(max_err, err)
+    log(f"phase 2 K1 vs plain: FR/FQ/MNT4Q x canonical/relaxed/const-b x n=1/1000/65537, "
+        f"contract-edge and all-ones-word inputs, sliced, NTT-view and broadcast operands: "
+        f"equal mod p, below 2p, limbs below 2^15, one launch and no operand copy each; "
+        f"host samples agree; max_abs_err {max_err}")
+    # times: "device" is the kernel's own device time (`device_ms`), "per
+    # call" the CUDA-event time of back-to-back wrapper calls, which the
+    # host paces where the kernel is short
     for spec in (FR, FQ):
         for logn in (14, 16, 18):
             _, a = _rand_fp(spec, 1 << logn, rng, dev)
             b = a + a
-            k_ms = cuda_time_ms(lambda: cuda_fp.mont_mul_cuda(spec, b.limbs, a.limbs), 20)
-            p_ms = cuda_time_ms(lambda: cuda_fp.mont_mul_plain(spec, b.limbs, a.limbs), 5)
-            log(f"  K1 {spec.name} 2^{logn}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
+            k_ms = device_ms(lambda: cuda_fp.mont_mul_cuda(spec, b.limbs, a.limbs), 20,
+                             "mont_mul_kernel")
+            c_ms = cuda_time_ms(lambda: cuda_fp.mont_mul_cuda(spec, b.limbs, a.limbs), 20)
+            p_ms = device_ms(lambda: cuda_fp.mont_mul_plain(spec, b.limbs, a.limbs), 5)
+            n = 1 << logn
+            b_ms, _ = bound(3 * n * spec.nlimbs * 8, n * mont_imads(spec.p.bit_length()))
+            log(f"  K1 {spec.name} 2^{logn}: device {k_ms:.4f} ms, per call {c_ms:.4f} ms, "
+                f"plain {p_ms:.4f} ms, bound {b_ms:.4f} ms")
     # the NTT stage shape of the slice: 3 parties x 2^14 FR elements
     _, a = _rand_fp(FR, 3 << 14, rng, dev)
     b = (a + a).reshape((3, 1 << 14))
     a = a.reshape((3, 1 << 14))
-    k_ms = cuda_time_ms(lambda: cuda_fp.mont_mul_cuda(FR, b.limbs, a.limbs), 20)
-    p_ms = cuda_time_ms(lambda: cuda_fp.mont_mul_plain(FR, b.limbs, a.limbs), 5)
+    k_ms = device_ms(lambda: cuda_fp.mont_mul_cuda(FR, b.limbs, a.limbs), 20, "mont_mul_kernel")
+    c_ms = cuda_time_ms(lambda: cuda_fp.mont_mul_cuda(FR, b.limbs, a.limbs), 20)
+    p_ms = device_ms(lambda: cuda_fp.mont_mul_plain(FR, b.limbs, a.limbs), 5)
     n = 3 << 14
     b_ms, b_by = bound(3 * n * FR.nlimbs * 8, n * mont_imads(FR.p.bit_length()))
-    log(f"  K1 FR [3, 2^14] (an NTT stage of the slice): kernel {k_ms:.4f} ms, "
-        f"plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    log(f"  K1 FR [3, 2^14] (an NTT stage of the slice): device {k_ms:.4f} ms, per call "
+        f"{c_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    # the slice's last NTT stage end to end through the wrapper: the odd
+    # half, a view [3, 1, 2^13] of [3, 2^14], times the [2^13] twiddles
+    _, tw = _rand_fp(FR, 1 << 13, rng, dev)
+    odd = b.limbs.reshape(3, 1, 1 << 14, FR.nlimbs)[..., 1 << 13:, :]
+    e_ms = cuda_time_ms(lambda: cuda_fp.mont_mul(FR, odd, tw.limbs), 20)
+    e_dev = device_ms(lambda: cuda_fp.mont_mul(FR, odd, tw.limbs), 20)
+    log(f"  K1 FR last NTT stage (odd view [3, 1, 2^13] x twiddles [2^13]) through "
+        f"cuda_fp.mont_mul, copies included: per call {e_ms:.4f} ms, device {e_dev:.4f} ms")
     results["mont_mul"] = dict(max_abs_err=max_err, ms=k_ms, plain_ms=p_ms,
                                bound_ms=b_ms, bound_by=b_by)
 
@@ -341,8 +491,10 @@ def phase_point_add(results):
             bad = [i for i, (x, y) in enumerate(zip(gl, el)) if x != y][:5]
             raise AssertionError(f"{name}: {TIMED_LANES} lanes differ from spec.curves "
                                  f"at lanes {bad}")
-        k_ms = cuda_time_ms(lambda: cuda_point.sw_add_complete_cuda(pl, ql), 10)
-        p_ms = cuda_time_ms(lambda: cuda_point.sw_add_complete_plain(pl, ql), 3)
+        k_ms = device_ms(lambda: cuda_point.sw_add_complete_cuda(pl, ql), 10,
+                         "point_add_kernel")
+        c_ms = cuda_time_ms(lambda: cuda_point.sw_add_complete_cuda(pl, ql), 10)
+        p_ms = device_ms(lambda: cuda_point.sw_add_complete_plain(pl, ql), 3)
         nc = 6 if g2 else 3                    # coordinate parts of a point
         lane_bytes = 3 * nc * FQ.nlimbs * 8 + 3          # P, Q in, sum out; flags
         b_ms, b_by = bound(TIMED_LANES * lane_bytes, TIMED_LANES * POINT_ADD_PRODUCTS[name] *
@@ -351,7 +503,7 @@ def phase_point_add(results):
                              bound_ms=b_ms, bound_by=b_by)
         log(f"phase 3 {name} vs plain and spec: {len(exp)} lanes (all cases) "
             f"identical, max_abs_err {err}; {TIMED_LANES} generic lanes identical to "
-            f"spec.curves: kernel {k_ms:.3f} ms, "
+            f"spec.curves: device {k_ms:.4f} ms, per call {c_ms:.4f} ms, "
             f"plain {p_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
 
 

@@ -33,10 +33,10 @@ run profile_change "$HERE" python3 tools/profile_prove.py
 run profile_parent "$HERE" python3 tools/profile_prove.py --root "$PARENT"
 for name in parent1 change1 change2 parent2; do
   echo "== $name"
-  grep -E '^phase (1 build|3|4 setup|4 prove)|^all phases' "$OUT/$name.log"
+  grep -E '^phase (1 build|3|4 setup|4 prove)|^  K1 FR |^all phases' "$OUT/$name.log"
 done
 for name in profile_change profile_parent; do
   echo "== $name"
-  tail -n 1 "$OUT/$name.log" | cut -c 1-600
+  tail -n 1 "$OUT/$name.log" | cut -c 1-900
 done
 exit $fail

@@ -72,7 +72,7 @@ def build_all(srcs):
         os.makedirs(d, exist_ok=True)
         with open(os.path.join(d, "point_add.cu"), "w") as f:
             f.write(src)
-        cmd = [K._nvcc()] + K.NVCC_FLAGS + ["-o", os.path.join(d, "lib.so"),
+        cmd = [K._nvcc()] + K.NVCC_FLAGS + ["-I", K.CSRC_DIR, "-o", os.path.join(d, "lib.so"),
                                            os.path.join(d, "point_add.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True), d)

@@ -8,7 +8,8 @@ host clock, and one under `torch.profiler`; prints one JSON object with the
 card's name and power limit, the two wall-clocks, the device's busy time,
 and device time and launches by kernel: K1 (`mont_mul_kernel`), K2/K3
 (`point_add_kernel<F1|F2>`) and the PyTorch kernels around them, the ten
-largest of those by name.
+largest of those by name; the wrappers' launch counts (K1's operand copies
+among them); and K1's own device time at the NTT-stage shape FR [3, 2^14].
 
     python3 tools/profile_prove.py [--gates N] [--root DIR]
 
@@ -35,6 +36,31 @@ def kernel_group(name):
     if "mont_mul_kernel" in name:
         return "K1 mont_mul"
     return None
+
+
+def k1_device_ms(dev, reps=20):
+    """K1's own device time (profiler records of `mont_mul_kernel`) at the
+    slice's NTT-stage shape, FR [3, 2^14], on a relaxed operand (a + a, as
+    the NTT's odd half is) times a canonical one."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from zkmpc_tpu_torch.ops import cuda_fp
+    from zkmpc_tpu_torch.ops.limbs import FR, FpArray
+    rng = np.random.default_rng(3)
+    ints = [int(x) for x in rng.integers(1, 2**62, 3 << 14)]
+    a = FpArray.from_int(FR, np.asarray(ints, dtype=object).reshape(3, 1 << 14), device=dev)
+    b = a + a
+    cuda_fp.mont_mul_cuda(FR, b.limbs, a.limbs)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            cuda_fp.mont_mul_cuda(FR, b.limbs, a.limbs)
+        torch.cuda.synchronize()
+    us = sum(ev.time_range.elapsed_us() for ev in prof.events()
+             if ev.device_type == torch.autograd.DeviceType.CUDA
+             and "mont_mul_kernel" in ev.name)
+    return us / reps / 1e3
 
 
 def main(argv=None):
@@ -69,6 +95,7 @@ def main(argv=None):
         torch.cuda.synchronize()
         prof_wall = time.time() - t0
     launches = dict(K.LAUNCHES)
+    k1_ms = k1_device_ms(dev)
     ours = collections.defaultdict(lambda: [0.0, 0])
     other = collections.defaultdict(lambda: [0.0, 0])
     for ev in prof.events():
@@ -87,6 +114,7 @@ def main(argv=None):
         "idle_share": 1 - busy / (prof_wall * 1e3),
         "kernels": {k: {"ms": v[0], "launches": v[1]} for k, v in sorted(ours.items())},
         "wrapper_launch_counts": launches,
+        "k1_fr_3x2^14_device_ms": k1_ms,
         "pytorch_ms": sum(v[0] for v in other.values()),
         "pytorch_launches": sum(v[1] for v in other.values()),
         "pytorch_top": [{"name": k[:80], "ms": v[0], "launches": v[1]} for k, v in top],

@@ -106,7 +106,7 @@ def library():
         if _lib is None:
             lib = ctypes.CDLL(build())
             p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-            lib.zk_mont_mul.argtypes = [i, p, p, i, p, p, i64, p]
+            lib.zk_mont_mul.argtypes = [i, p, p, p, p, p, i64, p]
             lib.zk_mont_mul.restype = i
             lib.zk_point_add.argtypes = [i, i, p, p, p, p, p, p, p, i64, p]
             lib.zk_point_add.restype = i

@@ -61,7 +61,8 @@ def ints_to_limbs(ints, nlimbs: int) -> np.ndarray:
     lo = words[:, wi] >> sh
     hi = (words[:, wi + 1] << ((np.uint64(64) - sh) & np.uint64(63))) * \
         (sh != 0).astype(np.uint64)
-    return ((lo | hi) & np.uint64(MASK)).astype(np.int64)
+    # row-major, as the kernels read limbs (the fancy index above is not)
+    return ((lo | hi) & np.uint64(MASK)).astype(np.int64, order="C")
 
 
 def limbs_to_ints(limbs) -> list:
