@@ -3,12 +3,15 @@
 
 Builds the hand-written CUDA kernels from ``zkmpc_tpu_torch/csrc``, holds
 each against its plain PyTorch version on the card, then drives the port's
-main path: the wide-mul collaborative Groth16 prove at 16,381 gates and 3
-parties (domain 2^14) on the stacked transport -- device setup, two proves
-on different share inputs and randomness, pairing verification of both and
-rejection of a wrong instance.  It also re-proves the committed 4-gate
-fixture with the JAX package's key and shares and requires that package's
-proof.
+main paths, the collaborative Groth16 prove at 3 parties on the stacked
+transport, each with device setup, two proves on different share inputs
+and randomness, pairing verification of both and rejection of a wrong
+instance: the wide-mul circuit at 16,381 gates (domain 2^14, phase 4), and
+the PedersenComCircuit at 253 message and 253 randomness bits (the
+reference's headline circuit, domain 2^12, phase 5), synthesized through
+the MPC bit protocols and the in-circuit Pedersen commitment.  It also
+re-proves the committed 4-gate fixture with the JAX package's key and
+shares and requires that package's proof.
 
     python3 chip_smoke.py              # needs one CUDA card
     python3 chip_smoke.py --gates 64   # a quicker main-path run
@@ -507,18 +510,22 @@ def phase_point_add(results):
             f"plain {p_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
 
 
+def _load_script(*parts):
+    """A script of the repository (not a package module) as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(parts[-1][:-3], os.path.join(ROOT, *parts))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def phase_fixture():
     """The committed 4-gate prove of the JAX package, re-run on the card."""
-    import importlib.util
-
     import numpy as np
     import torch
     from zkmpc_tpu_torch.ops.limbs import FR, FpArray
     from zkmpc_tpu_torch.snark import driver, groth16
-    path = os.path.join(ROOT, "tests", "fixtures", "make_torch_slice_fixture.py")
-    spec = importlib.util.spec_from_file_location("slice_fixture", path)
-    mk = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mk)
+    mk = _load_script("tests", "fixtures", "make_torch_slice_fixture.py")
     fx = mk.load(np.load(mk.PATH))
     dev = torch.device(DEVICE)
     t0 = time.time()
@@ -537,16 +544,60 @@ def phase_fixture():
         f"proof equals the reference's and verifies ({time.time() - t0:.1f} s)")
 
 
-def _reshare(limbs, masks, n_parties, n_gates):
+def _reshare(limbs, masks):
     """Party 0 holds value - sum(masks), party i holds mask i (the dealt
-    shares of `make_prove_fn` put the whole value on party 0)."""
+    shares of `snark.driver` put the whole value on party 0).  limbs:
+    [P, *shape, nlimbs] shares; masks: FpArray [P-1, *shape]."""
     from zkmpc_tpu_torch.ops.limbs import FR, FpArray
     x = FpArray(limbs, FR, 2)
     total = masks[0]
-    for i in range(1, n_parties - 1):
+    for i in range(1, masks.shape[0]):
         total = total + masks[i]
     first = (x[0] - total).tighten()
-    return FpArray.concat([first.reshape((1, n_gates)), masks.tighten()], 0).limbs
+    return FpArray.concat([first.reshape((1,) + first.shape), masks.tighten()], 0).limbs
+
+
+def _masks(rng, n_parties, shape, device):
+    """Fresh random masks FpArray [P-1, *shape] from a numpy generator."""
+    import numpy as np
+    from zkmpc_tpu_torch.ops.limbs import FR, FpArray
+    n = (n_parties - 1) * int(np.prod(shape, dtype=np.int64))
+    ints = np.asarray([int(x) for x in rng.integers(1, 2**62, n)], dtype=object)
+    return FpArray.from_int(FR, ints.reshape((n_parties - 1,) + tuple(shape)), device=device)
+
+
+def _prove_twice(what, step, calls, vk, inst, wrong_inst):
+    """Two proves, one on each of ``calls`` (pairs of step arguments and
+    keyword arguments), each timed on the host clock up to a synchronize and
+    its kernel launches counted.  Both proofs must verify and differ, a
+    wrong instance must be rejected, and each prove must launch every
+    kernel.  Returns (seconds per prove, launches per prove)."""
+    import torch
+    from zkmpc_tpu_torch.ops import build as K
+    from zkmpc_tpu_torch.snark import driver, groth16
+    proofs, times, per_prove = [], [], []
+    for args, kwargs in calls:
+        before = dict(K.LAUNCHES)
+        torch.cuda.synchronize()
+        t1 = time.time()
+        outs = step(*args, **kwargs)
+        torch.cuda.synchronize()
+        times.append(time.time() - t1)
+        per_prove.append({k: v - before.get(k, 0) for k, v in K.LAUNCHES.items()})
+        proofs.append(driver.proof_arrays_to_ints(outs))
+    for i, proof in enumerate(proofs):
+        if any(pt is None for pt in proof):
+            raise AssertionError(f"{what} prove {i + 1}: a proof point is at infinity")
+        if not groth16.verify(vk, inst, proof):
+            raise AssertionError(f"{what} prove {i + 1}: the proof does not verify")
+    if proofs[0] == proofs[1]:
+        raise AssertionError(f"{what}: two proves on different inputs gave the same proof")
+    if groth16.verify(vk, wrong_inst, proofs[0]):
+        raise AssertionError(f"{what}: a wrong instance verified")
+    for name in KERNELS:
+        if min(p.get(name, 0) for p in per_prove) <= 0:
+            raise AssertionError(f"{what}: a prove never launched {name}")
+    return times, per_prove
 
 
 def phase_slice(n_gates, n_parties=3):
@@ -555,8 +606,8 @@ def phase_slice(n_gates, n_parties=3):
     import numpy as np
     import torch
     from zkmpc_tpu_torch.ops import build as K
-    from zkmpc_tpu_torch.ops.limbs import FR, FpArray
-    from zkmpc_tpu_torch.snark import driver, groth16
+    from zkmpc_tpu_torch.ops.limbs import FR
+    from zkmpc_tpu_torch.snark import driver
     dev = torch.device(DEVICE)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -571,47 +622,99 @@ def phase_slice(n_gates, n_parties=3):
     # the second input: the same gate values re-shared with fresh masks
     rng = np.random.default_rng(11)
     a_l, b_l, _ = args
-    masks = [FpArray.from_int(FR, np.asarray(
-        [int(x) for x in rng.integers(1, 2**62, (n_parties - 1) * n_gates)],
-        dtype=object).reshape(n_parties - 1, n_gates), device=dev) for _ in range(2)]
-    args2 = (_reshare(a_l, masks[0], n_parties, n_gates),
-             _reshare(b_l, masks[1], n_parties, n_gates),
+    args2 = (_reshare(a_l, _masks(rng, n_parties, (n_gates,), dev)),
+             _reshare(b_l, _masks(rng, n_parties, (n_gates,), dev)),
              torch.Generator().manual_seed(8))
-
-    proofs, times, per_prove = [], [], []
-    for call in (args, args2):
-        before = dict(K.LAUNCHES)
-        torch.cuda.synchronize()
-        t1 = time.time()
-        outs = step(*call)
-        torch.cuda.synchronize()
-        times.append(time.time() - t1)
-        per_prove.append({k: v - before.get(k, 0) for k, v in K.LAUNCHES.items()})
-        proofs.append(driver.proof_arrays_to_ints(outs))
-    launches = dict(K.LAUNCHES)
-    peak = torch.cuda.max_memory_allocated()
-
     pk = dpk.pk
     log(f"phase 4 setup: {n_gates} gates, {pk.num_constraints} constraints, "
         f"domain {pk.domain_n}, m = {pk.num_instance + pk.num_witness}: {t_setup:.2f} s")
     inst = driver.expected_instance(n_gates)
-    for i, proof in enumerate(proofs):
-        if any(pt is None for pt in proof):
-            raise AssertionError(f"prove {i + 1}: a proof point is at infinity")
-        if not groth16.verify(pk.vk, inst, proof):
-            raise AssertionError(f"prove {i + 1}: the proof does not verify")
-    if proofs[0] == proofs[1]:
-        raise AssertionError("two proves on different inputs gave the same proof")
-    bad = [inst[0], (inst[1] + 1) % FR.p]
-    if groth16.verify(pk.vk, bad, proofs[0]):
-        raise AssertionError("a wrong instance verified")
+    times, per_prove = _prove_twice("phase 4", step, [(args, {}), (args2, {})], pk.vk,
+                                    inst, [inst[0], (inst[1] + 1) % FR.p])
+    launches = dict(K.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
     log(f"phase 4 prove 1: {times[0]:.2f} s, prove 2: {times[1]:.2f} s; both verify, "
         f"wrong instance rejected; peak device memory {peak} B ({peak / 2**30:.2f} GiB)")
     log(f"phase 4 launches: setup {setup_launches}; prove 1 {per_prove[0]}; "
         f"prove 2 {per_prove[1]}; main path {launches}")
-    for name in KERNELS:
-        if min(per_prove[0].get(name, 0), per_prove[1].get(name, 0)) <= 0:
-            raise AssertionError(f"a prove never launched {name}")
+    return launches
+
+
+def phase_pedersen(n_parties=3):
+    """The PedersenComCircuit at 253 message and 253 randomness bits:
+    synthesis through the port's MPC and setup, two proves on different
+    re-sharings and randomness, verification of both and rejection of a
+    wrong commitment, with the kernel counts reset just before and read
+    just after; then one warm prove and one warm synthesis (its MPC part)
+    under the profiler, and the synthesis alone on the host clock."""
+    import numpy as np
+    import torch
+    from zkmpc_tpu_torch.ops import build as K
+    from zkmpc_tpu_torch.ops.limbs import FR
+    from zkmpc_tpu_torch.parallel.transport import StackedTransport
+    from zkmpc_tpu_torch.snark import driver, groth16
+    dev = torch.device(DEVICE)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    t0 = time.time()
+    cs = driver.synthesize_pedersen_cs(n_parties, device=dev)
+    torch.cuda.synchronize()
+    t_synth = time.time() - t0
+    dpk = groth16.device_setup(cs, seed=1, device=dev)
+    step, args = driver.make_pedersen_prove_fn(dpk, n_parties)
+    torch.cuda.synchronize()
+    t_setup = time.time() - t0
+    setup_launches = dict(K.LAUNCHES)
+
+    # the second input: m and the bits of r re-shared with fresh masks
+    rng = np.random.default_rng(12)
+    m_l, r_l, _ = args
+    args2 = (_reshare(m_l, _masks(rng, n_parties, (), dev)),
+             _reshare(r_l, _masks(rng, n_parties, (driver.PED_NBITS,), dev)),
+             torch.Generator().manual_seed(12))
+    pk = dpk.pk
+    log(f"phase 5 PedersenComCircuit ({driver.PED_NBITS}+{driver.PED_NBITS} bits, "
+        f"{n_parties} parties): {pk.num_constraints} constraints, domain {pk.domain_n}, "
+        f"m = {pk.num_instance + pk.num_witness} variables; synthesis {t_synth:.2f} s, "
+        f"setup in all {t_setup:.2f} s")
+    inst = driver.expected_pedersen_instance()
+    if cs.instance_ints() != inst:
+        raise AssertionError("the synthesized instance is not the commitment")
+    transports = [StackedTransport(n_parties, dev) for _ in range(2)]
+    times, per_prove = _prove_twice(
+        "phase 5", step, [(a, {"transport": t}) for a, t in zip((args, args2), transports)],
+        pk.vk, inst, [inst[0], (inst[1] + 1) % FR.p, inst[2]])
+    rounds = [t.stats.rounds for t in transports]
+    if min(rounds) <= 0:
+        raise AssertionError(f"phase 5: a prove opened nothing on its transport ({rounds})")
+    launches = dict(K.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"phase 5 prove 1: {times[0]:.2f} s, prove 2: {times[1]:.2f} s; both verify, "
+        f"wrong commitment rejected; peak device memory {peak} B ({peak / 2**30:.2f} GiB)")
+    log(f"phase 5 launches: setup {setup_launches}; prove 1 {per_prove[0]}, "
+        f"{rounds[0]} openings; prove 2 {per_prove[1]}, {rounds[1]} openings; "
+        f"main path {launches}")
+    tool = _load_script("tools", "profile_prove.py")
+
+    def profiled(what, fn):
+        wall, groups, other = tool.profile_call(fn)
+        groups["PyTorch kernels"] = [sum(v[0] for v in other.values()),
+                                     sum(v[1] for v in other.values())]
+        busy = sum(v[0] for v in groups.values())
+        if busy <= 0:
+            raise AssertionError("the profiler recorded no device time")
+        log(f"phase 5 profiled {what}: {wall:.3f} s, device busy {busy:.1f} ms "
+            f"({busy / (wall * 1e3):.1%}); " + "; ".join(
+                f"{k} {v[0]:.1f} ms over {v[1]} launches" for k, v in sorted(groups.items())))
+
+    profiled("warm prove", lambda: step(*args))
+    # the MPC witness synthesis alone, the part of a prove before groth16.prove
+    t1 = time.time()
+    driver.synthesize_pedersen_cs(n_parties, device=dev)
+    torch.cuda.synchronize()
+    log(f"phase 5 warm synthesis alone: {time.time() - t1:.2f} s")
+    profiled("warm synthesis", lambda: driver.synthesize_pedersen_cs(n_parties, device=dev))
     return launches
 
 
@@ -632,7 +735,9 @@ def main(argv=None):
     phase_mont_mul(results)
     phase_point_add(results)
     phase_fixture()
-    launches = phase_slice(args.gates)
+    wide = phase_slice(args.gates)
+    ped = phase_pedersen()
+    launches = {k: wide.get(k, 0) + ped.get(k, 0) for k in set(wide) | set(ped)}
     bad = sorted(m for m in sys.modules if m in ("jax", "zkmpc_tpu")
                  or m.startswith(("jax.", "jaxlib", "zkmpc_tpu.")))
     if bad:

@@ -14,7 +14,7 @@ The file holds:
 
 Run from the repository root (takes several minutes on a CPU):
 
-    JAX_PLATFORMS=cpu python tests/fixtures/make_torch_slice_fixture.py
+    PYTHONPATH=. JAX_PLATFORMS=cpu python tests/fixtures/make_torch_slice_fixture.py
 """
 
 from __future__ import annotations

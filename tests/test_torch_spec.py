@@ -1,6 +1,7 @@
 """The port's own copies of the JAX package's pure-Python modules
-(`zkmpc_tpu_torch.params`, `spec.field`, `spec.curves`, `compat.ark`,
-`compat.chacha`) against the originals on a few seeded inputs.
+(`zkmpc_tpu_torch.params`, `spec.field`, `spec.curves` with its twisted
+Edwards half, `compat.ark`, `compat.chacha`) against the originals on a few
+seeded inputs.
 
 Exact everywhere: these are constants and integer arithmetic.  The pairing
 copy is exercised by `tests/test_torch_groth16.py`, which verifies proofs
@@ -51,6 +52,23 @@ def test_curves_match_reference():
         assert add(pts[3], neg(pts[3])) is None
         assert neg(pts[4]) == jneg(pts[4])
         assert add(pts[1], pts[1]) == jadd(pts[1], pts[1])
+
+
+def test_twisted_edwards_half_matches_reference():
+    rng = np.random.default_rng(43)
+    ks = [0, 1, 2, TP.ED_FR_MODULUS - 1] + [int(x) for x in rng.integers(3, 2**62, 2)]
+    assert (TC.EP, TC.ED_A, TC.ED_D, TC.TE_NEUTRAL, TC.TE_GEN) == \
+        (JC.EP, JC.ED_A, JC.ED_D, JC.TE_NEUTRAL, JC.TE_GEN)
+    assert TC.te_is_on_curve(TC.TE_GEN) and TC.te_is_on_curve(TC.TE_NEUTRAL)
+    pts = [TC.te_scalar_mul(TC.TE_GEN, k) for k in ks]
+    assert pts == [JC.te_scalar_mul(JC.TE_GEN, k) for k in ks]
+    assert pts[0] == TC.TE_NEUTRAL
+    for a, b in zip(pts, pts[1:]):
+        assert TC.te_add(a, b) == JC.te_add(a, b)
+        assert TC.te_is_on_curve(a) == JC.te_is_on_curve(a) is True
+    assert TC.te_neg(pts[4]) == JC.te_neg(pts[4])
+    assert TC.te_add(pts[4], TC.te_neg(pts[4])) == TC.TE_NEUTRAL
+    assert not TC.te_is_on_curve((1, 1))
 
 
 def test_fr_rand_stream_matches_reference():

@@ -84,3 +84,21 @@ def point_leaves_np(p) -> list:
     """Coordinate limbs (int64 numpy) and the infinity mask of a port point."""
     return [limbs_np(leaf) if leaf.dtype != torch.bool else leaf.numpy()
             for leaf in p.leaves()]
+
+
+def check_circuit(cs, fx, n_parties=3):
+    """A port ConstraintSystem against one circuit the JAX package recorded
+    (``fixtures/make_torch_pedersen_fixture.record``): counts, matrices,
+    instance and the opened full assignment, and that it is satisfied."""
+    from zkmpc_tpu_torch.mpc.share import MpcContext, mpc_scope
+    from zkmpc_tpu_torch.parallel.transport import StackedTransport
+    assert fx["counts"] == {"num_instance": cs.num_instance,
+                            "num_witness": cs.num_witness,
+                            "constraints": len(cs.constraints)}
+    for got, want in zip(cs.matrices(), fx["matrices"]):
+        assert [got[0].tolist(), got[1].tolist(), [int(v) for v in got[2]]] == want
+    with mpc_scope(MpcContext(StackedTransport(n_parties, CPU), "semi")):
+        assert cs.instance_ints() == fx["instance"]
+        z = [int(v) for v in cs.full_assignment().reveal().to_ints()[0]]
+        assert z == fx["assignment"]
+        assert cs.is_satisfied_ints()

@@ -38,6 +38,29 @@ def kernel_group(name):
     return None
 
 
+def profile_call(fn):
+    """One call of fn, ended by a synchronize, under torch.profiler.
+    Returns (wall s, {K1/K2/K3 group: [device ms, launches]}, {other
+    kernel name: [device ms, launches]}) summed over every device event."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    ours = collections.defaultdict(lambda: [0.0, 0])
+    other = collections.defaultdict(lambda: [0.0, 0])
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        group = kernel_group(ev.name)
+        acc = ours[group] if group else other[ev.name]
+        acc[0] += ev.time_range.elapsed_us() / 1e3
+        acc[1] += 1
+    return wall, dict(ours), dict(other)
+
+
 def k1_device_ms(dev, reps=20):
     """K1's own device time (profiler records of `mont_mul_kernel`) at the
     slice's NTT-stage shape, FR [3, 2^14], on a relaxed operand (a + a, as
@@ -71,7 +94,6 @@ def main(argv=None):
     args = ap.parse_args(argv)
     sys.path.insert(0, os.path.abspath(args.root))
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from zkmpc_tpu_torch.ops import build as K
     from zkmpc_tpu_torch.snark import driver
     if not torch.cuda.is_available():
@@ -89,23 +111,9 @@ def main(argv=None):
     torch.cuda.synchronize()
     wall = time.time() - t0
     K.reset_launches()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.time()
-        step(*call)
-        torch.cuda.synchronize()
-        prof_wall = time.time() - t0
+    prof_wall, ours, other = profile_call(lambda: step(*call))
     launches = dict(K.LAUNCHES)
     k1_ms = k1_device_ms(dev)
-    ours = collections.defaultdict(lambda: [0.0, 0])
-    other = collections.defaultdict(lambda: [0.0, 0])
-    for ev in prof.events():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        ms = ev.time_range.elapsed_us() / 1e3
-        group = kernel_group(ev.name)
-        acc = ours[group] if group else other[ev.name]
-        acc[0] += ms
-        acc[1] += 1
     busy = sum(v[0] for v in ours.values()) + sum(v[0] for v in other.values())
     top = sorted(other.items(), key=lambda kv: -kv[1][0])[:10]
     print(json.dumps({

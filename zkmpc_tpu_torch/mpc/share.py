@@ -273,6 +273,11 @@ class DummyTripleSource:
                         SHARED)
         return a, Bp, Bp
 
+    def inv_pairs(self, spec, shape):
+        """Inverse pairs (r, r^-1) with r = 1, the constant triple's a."""
+        a, _, _ = self.field_triples(spec, shape)
+        return a, a
+
 
 def beaver_mul(x: MpcFp, y: MpcFp) -> MpcFp:
     """Batched Beaver multiplication: open d = x-a and e = y-b, then
@@ -285,6 +290,22 @@ def beaver_mul(x: MpcFp, y: MpcFp) -> MpcFp:
     return cc + b * MpcFp(d, PUBLIC) + a * MpcFp(e, PUBLIC) + de
 
 
+def beaver_inv(x: MpcFp) -> MpcFp:
+    """Shared inverse via an inverse pair: open x*r, return
+    r * (x*r)^-1 (the public inverse is ``FpArray.inv``, x^(p-2))."""
+    r, _ = ctx().triple_source.inv_pairs(x.spec, x.shape)
+    xr = (x * r).reveal()
+    return r * MpcFp(xr.inv(), PUBLIC)
+
+
+def beaver_div(x: MpcFp, y: MpcFp) -> MpcFp:
+    """Shared division x/y: mask the divisor with an inverse pair r, open
+    y*r, then x/y = (x*r) * (y*r)^-1."""
+    r, _ = ctx().triple_source.inv_pairs(y.spec, y.shape)
+    yr = (y * r).reveal()
+    return (x * r) * MpcFp(yr.inv(), PUBLIC)
+
+
 def rand_shared(generator, spec: FieldSpec, shape=(), shares=None) -> MpcFp:
     """Fresh random shared value: each party holds an independent uniform
     share.  ``shares``: optional injected share tensor (FpArray [P, *shape])
@@ -295,3 +316,31 @@ def rand_shared(generator, spec: FieldSpec, shape=(), shares=None) -> MpcFp:
         return MpcFp(shares.to(t.device), SHARED)
     sh = R.uniform_fp(generator, spec, party_shape(t, shape), device=t.device)
     return MpcFp(sh, SHARED)
+
+
+def king_share(value: FpArray, generator, shares=None) -> MpcFp:
+    """The leader (party 0) deals additive shares of ``value``: parties
+    1..P-1 hold uniform draws, the leader value minus their sum.  As in the
+    reference, one draw of [P, *shape] is made and row 0 is not used (the
+    draws stand for a replicated key's outputs, so this is a test-net
+    dealer, not private input sharing).  ``shares``: optional injected
+    draws (FpArray [P, *shape]) in place of the generator's."""
+    t = ctx().transport
+    spec = value.spec
+    batch = tuple(value.shape)
+    if shares is None:
+        shares = R.uniform_fp(generator, spec, party_shape(t, batch), device=t.device)
+    assert shares.shape == party_shape(t, batch), shares.shape
+    shares = shares.to(t.device)
+    leader = value.to(t.device) - _sum_axis0(shares[1:])
+    sh = FpArray.concat([leader.reshape((1,) + batch), shares[1:]], axis=0)
+    return MpcFp(sh, SHARED)
+
+
+def _sum_axis0(x: FpArray) -> FpArray:
+    if x.shape[0] == 0:
+        return FpArray.zeros(x.spec, x.shape[1:], x.device)
+    acc = x[0]
+    for i in range(1, x.shape[0]):
+        acc = acc + x[i]
+    return acc

@@ -1,24 +1,35 @@
-"""Collaborative-prove driver for the wide multiplication circuit.
+"""Collaborative-prove drivers: the wide multiplication circuit and the
+PedersenComCircuit.
 
-Port of the wide-mul half of ``zkmpc_tpu/snark/driver.py``: a synthetic
-circuit of n independent gates a_i*b_i = c_i, allocated as vector wires so
-all Beaver multiplications batch into one round, plus one instance pinning
-sum(c).  `synthesize` sets it up once (host setup + device scalar muls);
-`make_prove_fn` returns the prove step on raw share limb tensors.
+Port of ``zkmpc_tpu/snark/driver.py``.  The wide-mul circuit is synthetic:
+n independent gates a_i*b_i = c_i, allocated as vector wires so all Beaver
+multiplications batch into one round, plus one instance pinning sum(c).
+The PedersenComCircuit proves that a public point commits to a shared
+message under shared randomness bits: the MPC bit decomposition, window
+lookups and a tree of Edwards adds, in circuit.  `synthesize` /
+`synthesize_pedersen_cs` build a circuit once for the setup;
+`make_prove_fn` / `make_pedersen_prove_fn` return the prove step on raw
+share limb tensors.
 """
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
+from ..circuits.pedersen_gadget import pedersen_com_circuit
+from ..crypto import pedersen as PD
+from ..mpc import bits as B
 from ..mpc.share import SHARED, MpcContext, MpcFp, _promote_to_shared, \
-    _sum_last_axis, mpc_scope
+    _sum_last_axis, king_share, mpc_scope
 from ..ops.curve import SWPoint
 from ..ops.fp2 import Fp2Array
 from ..ops.limbs import FQ, FR, FpArray
 from ..parallel import transport as T
 from . import groth16
+from .gadgets import Boolean, FpVar
 from .r1cs import LC, ConstraintSystem
 
 
@@ -66,9 +77,11 @@ def expected_instance(n_gates: int):
 
 
 def deal(vals, n_parties: int, device="cuda"):
-    """Additive shares on the host: party 0 holds the values, the rest 0."""
-    arr = np.zeros((n_parties, len(vals)), dtype=object)
-    arr[0, :] = vals
+    """Additive shares on the host: party 0 holds the values (an int or an
+    array of ints), the rest 0."""
+    vals = np.asarray(vals, dtype=object)
+    arr = np.zeros((n_parties,) + vals.shape, dtype=object)
+    arr[0, ...] = vals
     return FpArray.from_int(FR, arr, device=device).limbs
 
 
@@ -88,18 +101,106 @@ def make_prove_fn(dpk: groth16.DeviceProvingKey, n_parties: int):
             a = MpcFp(FpArray(a_limbs, FR, 2), SHARED)
             b = MpcFp(FpArray(b_limbs, FR, 2), SHARED)
             build_wide_mul_circuit(cs2, a, b)
-            a_pt, b_pt, c_pt = groth16.prove(dpk, cs2, generator, matrices=mats,
-                                             r=r, s=s)
-            return (a_pt.x.limbs, a_pt.y.limbs, a_pt.z.limbs, a_pt.inf,
-                    b_pt.x.c0.limbs, b_pt.x.c1.limbs,
-                    b_pt.y.c0.limbs, b_pt.y.c1.limbs,
-                    b_pt.z.c0.limbs, b_pt.z.c1.limbs, b_pt.inf,
-                    c_pt.x.limbs, c_pt.y.limbs, c_pt.z.limbs, c_pt.inf)
+            return _proof_arrays(groth16.prove(dpk, cs2, generator, matrices=mats,
+                                               r=r, s=s))
 
     vals_a = [(i + 2) for i in range(n_gates)]
     vals_b = [(i + 5) for i in range(n_gates)]
     return step, (deal(vals_a, n_parties, dev), deal(vals_b, n_parties, dev),
                   torch.Generator().manual_seed(7))
+
+
+def _proof_arrays(proof):
+    a_pt, b_pt, c_pt = proof
+    return (a_pt.x.limbs, a_pt.y.limbs, a_pt.z.limbs, a_pt.inf,
+            b_pt.x.c0.limbs, b_pt.x.c1.limbs,
+            b_pt.y.c0.limbs, b_pt.y.c1.limbs,
+            b_pt.z.c0.limbs, b_pt.z.c1.limbs, b_pt.inf,
+            c_pt.x.limbs, c_pt.y.limbs, c_pt.z.limbs, c_pt.inf)
+
+
+# --- the PedersenComCircuit prove (the reference's headline circuit:
+# MPC proving 6.572 s at 3 parties on its own hardware, BASELINE.md) --------
+
+PED_M_INT = 123456789
+PED_R_INT = 0x5A5A5A5A5A
+PED_NBITS = 253
+
+
+@functools.lru_cache(maxsize=None)
+def _pedersen_fixture(nbits: int = PED_NBITS):
+    """(params, m, r, commitment) of the circuit at ``nbits`` message and
+    randomness bits.  m and r are the reference's values cut to nbits bits,
+    so a narrower circuit stays satisfiable; at 253 bits they are whole."""
+    pp = PD.PedersenParams.sample(7)
+    m = PED_M_INT % (1 << nbits)
+    r = PED_R_INT % (1 << nbits)
+    return pp, m, r, PD.commit_public_ints(pp, m, r)
+
+
+def _build_pedersen_cs(cs, x_wire, r_bits_wire, generator, nbits: int):
+    pp, _, _, com = _pedersen_fixture(nbits)
+    x = FpVar.new_witness(cs, x_wire)
+    r_bools = [Boolean.new_witness(cs, B._index_last(r_bits_wire, i))
+               for i in range(nbits)]
+    pedersen_com_circuit(cs, x, r_bools, com, pp, generator, nbits=nbits)
+
+
+def synthesize_pedersen_cs(n_parties: int, nbits: int = PED_NBITS,
+                           device="cuda") -> ConstraintSystem:
+    """Synthesize the PedersenComCircuit through the MPC (the leader deals m
+    and the bits of r; the bit decomposition and the point tree run as
+    protocols) on ``device``; its matrices feed the setup."""
+    _, m, r, _ = _pedersen_fixture(nbits)
+    gen = torch.Generator().manual_seed(3)
+    t = T.StackedTransport(n_parties, device)
+    with mpc_scope(MpcContext(t, backend="semi")):
+        cs = ConstraintSystem(FR)
+        x = king_share(FpArray.from_int(FR, m, device=device), gen)
+        rb = king_share(FpArray.from_int(FR, [(r >> i) & 1 for i in range(nbits)],
+                                         device=device), gen)
+        _build_pedersen_cs(cs, x, rb, gen, nbits)
+    return cs
+
+
+def make_pedersen_prove_fn(dpk: groth16.DeviceProvingKey, n_parties: int,
+                           nbits: int = PED_NBITS):
+    """Returns (fn, example_args) for the full prove of the
+    PedersenComCircuit: MPC witness synthesis (batched bit decomposition and
+    the log-depth point tree), the QAP, the Groth16 MSMs and the opening.
+
+    fn(m_limbs, r_limbs, generator, r=None, s=None, transport=None) -> proof
+    arrays, with m_limbs [P, nlimbs] shares of the message, r_limbs
+    [P, nbits, nlimbs] shares of the randomness bits; the generator's draws
+    go first to the bit protocols, then to the prover's r and s (or r/s:
+    injected shares).  ``transport``: the StackedTransport to run on (a
+    fresh one by default), whose ``stats`` then count the prove's openings."""
+    pk = dpk.pk
+    dev = dpk.device
+    mats = groth16.device_matrices_from_pk(pk, dev)
+    _, m, r_int, _ = _pedersen_fixture(nbits)
+
+    def step(m_limbs, r_limbs, generator, r=None, s=None, transport=None):
+        t = transport or T.StackedTransport(n_parties, dev)
+        with mpc_scope(MpcContext(t, backend="semi")):
+            cs2 = ConstraintSystem(FR)
+            x = MpcFp(FpArray(m_limbs, FR, 2), SHARED)
+            rb = MpcFp(FpArray(r_limbs, FR, 2), SHARED)
+            _build_pedersen_cs(cs2, x, rb, generator, nbits)
+            assert len(cs2.constraints) == pk.num_constraints, \
+                "the circuit differs from the proving key's"
+            return _proof_arrays(groth16.prove(dpk, cs2, generator, matrices=mats,
+                                               r=r, s=s))
+
+    r_bits = [(r_int >> i) & 1 for i in range(nbits)]
+    return step, (deal(m, n_parties, dev), deal(r_bits, n_parties, dev),
+                  torch.Generator().manual_seed(11))
+
+
+def expected_pedersen_instance(nbits: int = PED_NBITS):
+    """Host ints [1, commitment x, commitment y] of the PedersenComCircuit."""
+    _, _, _, com = _pedersen_fixture(nbits)
+    return [1, int(com[0]), int(com[1])]
 
 
 def proof_arrays_to_ints(outs):

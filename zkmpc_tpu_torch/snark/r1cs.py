@@ -71,6 +71,12 @@ class ConstraintSystem:
         self._instance_vals.append(value)
         return idx
 
+    def new_witness(self, value: MpcFp) -> int:
+        idx = self.num_witness
+        self.num_witness += 1
+        self._witness_vals.append(value)
+        return ~idx  # witness indices are encoded as negative (bitwise-not)
+
     def new_witness_vec(self, values: MpcFp) -> list[int]:
         """Allocate a whole batched wire tensor [n] as n witness variables
         (one tensor, one batched protocol round for the ops behind it)."""
@@ -79,6 +85,13 @@ class ConstraintSystem:
         self.num_witness += n
         self._witness_vals.append(values)
         return [~(start + i) for i in range(n)]
+
+    def new_instance_vec(self, values: MpcFp) -> list[int]:
+        (n,) = values.shape
+        start = self.num_instance
+        self.num_instance += n
+        self._instance_vals.append(values)
+        return list(range(start, start + n))
 
     def _col(self, var: int) -> int:
         if var >= 0:
@@ -121,3 +134,24 @@ class ConstraintSystem:
         if z.visibility == PUBLIC:
             z = _promote_to_shared(z)
         return z
+
+    def instance_ints(self):
+        """Host-side canonical instance values [num_instance] (incl. the
+        leading 1), from party 0's replicated copy."""
+        vals = [1]
+        for w in self._instance_vals:
+            assert w.visibility == PUBLIC, "instance wires must be public"
+            vals.extend(int(v) for v in np.asarray(w.value.to_ints()[0]).reshape(-1))
+        return vals
+
+    # ----------------------------------------------------------- evaluation
+
+    def is_satisfied_ints(self) -> bool:
+        """Host-side sanity check: open the whole assignment (one opening)
+        and test every constraint over Python ints."""
+        z = [int(v) for v in self.full_assignment().reveal().to_ints()[0]]
+        p = self.spec.p
+
+        def ev(lc):
+            return sum(c * z[self._col(v)] for v, c in lc.terms.items()) % p
+        return all(ev(a) * ev(b) % p == ev(c) for a, b, c in self.constraints)

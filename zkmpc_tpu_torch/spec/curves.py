@@ -1,9 +1,10 @@
 """Pure-Python elliptic curve arithmetic (specification/oracle backend).
 
-The port's copy of the short-Weierstrass half of
-``zkmpc_tpu/spec/curves.py``: affine a = 0 curves over Fq and Fq2 for
-BLS12-377 G1/G2.  Points at infinity are ``None``.  Fq2 elements are
-``(c0, c1)`` tuples meaning c0 + c1*u with u^2 = -5.
+The port's copy of ``zkmpc_tpu/spec/curves.py``: affine a = 0 curves over
+Fq and Fq2 for BLS12-377 G1/G2, and the twisted Edwards curve
+ed-on-bls12-377 over Fr.  Short-Weierstrass points at infinity are
+``None``.  Fq2 elements are ``(c0, c1)`` tuples meaning c0 + c1*u with
+u^2 = -5.
 """
 
 from __future__ import annotations
@@ -169,3 +170,46 @@ G2_GEN = (
     (params.G2_GENERATOR_X_C0, params.G2_GENERATOR_X_C1),
     (params.G2_GENERATOR_Y_C0, params.G2_GENERATOR_Y_C1),
 )
+
+
+# ------------------------------------------------------- twisted Edwards
+
+EP = params.FR_MODULUS  # TE base field = BLS12-377 Fr
+ED_A = params.ED_A
+ED_D = params.ED_D
+
+TE_NEUTRAL = (0, 1)
+
+
+def te_add(p1, p2):
+    """Complete twisted Edwards addition (a = -1, d = 3021)."""
+    x1, y1 = p1
+    x2, y2 = p2
+    x1x2, y1y2 = x1 * x2 % EP, y1 * y2 % EP
+    dxy = ED_D * x1x2 % EP * y1y2 % EP
+    x3 = (x1 * y2 + y1 * x2) * inv(1 + dxy, EP) % EP
+    y3 = (y1y2 - ED_A * x1x2) * inv(1 - dxy, EP) % EP
+    return (x3, y3)
+
+
+def te_neg(p1):
+    return ((-p1[0]) % EP, p1[1])
+
+
+def te_scalar_mul(pt, k: int):
+    k %= params.ED_FR_MODULUS
+    acc, base = TE_NEUTRAL, pt
+    while k:
+        if k & 1:
+            acc = te_add(acc, base)
+        base = te_add(base, base)
+        k >>= 1
+    return acc
+
+
+TE_GEN = (params.ED_GENERATOR_X, params.ED_GENERATOR_Y)
+
+
+def te_is_on_curve(pt):
+    x, y = pt
+    return (ED_A * x * x + y * y - 1 - ED_D * x * x % EP * y % EP * y) % EP == 0
