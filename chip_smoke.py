@@ -11,7 +11,12 @@ the PedersenComCircuit at 253 message and 253 randomness bits (the
 reference's headline circuit, domain 2^12, phase 5), synthesized through
 the MPC bit protocols and the in-circuit Pedersen commitment.  It also
 re-proves the committed 4-gate fixture with the JAX package's key and
-shares and requires that package's proof.
+shares and requires that package's proof.  Phase 6 runs the `main` binary
+(`zkmpc_tpu_torch/cli/main.py`) at 1,024 slots: SHE/SPDZ preprocessing
+(keys, initialize with ZKPoPKs, pair, triple; K1 at 51 limbs) feeding the
+committed-input circuit's prove, its parsed proof blob verified and a
+wrong instance rejected; then checked triple batches timed at 1,024 and
+8,192 slots.
 
     python3 chip_smoke.py              # needs one CUDA card
     python3 chip_smoke.py --gates 64   # a quicker main-path run
@@ -24,6 +29,7 @@ the last is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import random
@@ -86,20 +92,18 @@ def cuda_time_ms(fn, reps):
 def device_ms(fn, reps, match=None):
     """Mean device time of fn() over reps calls, from torch.profiler's
     records of the kernels it ran: those whose name contains `match`, or all
-    of them.  Unlike `cuda_time_ms`, no host time between launches counts."""
+    of them.  Unlike `cuda_time_ms`, no host time between launches counts.
+    Fails if the profiler records no device event (after the retries of
+    `tools/profile_prove.device_events`) or none of that name."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(ev.time_range.elapsed_us() for ev in prof.events()
-             if ev.device_type == torch.autograd.DeviceType.CUDA
-             and (match is None or match in ev.name))
+    _, evs = _load_script("tools", "profile_prove.py").device_events(
+        lambda: [fn() for _ in range(reps)])
+    us = sum(t for name, t in evs if match is None or match in name)
     if us <= 0:
-        raise AssertionError(f"the profiler recorded no device time for {match or 'fn'}")
+        raise AssertionError(f"the profiler recorded no device time for {match}; it "
+                             f"recorded {sorted({n[:60] for n, _ in evs})[:4]}")
     return us / reps / 1e3
 
 
@@ -239,11 +243,12 @@ def phase_mont_mul(results):
     max_err = 0
 
     def one_launch(spec, name, a, b):
-        """K1 through the wrapper: exactly one launch and no operand copy."""
+        """K1 through the wrapper: exactly one launch, counted at its width,
+        and no operand copy."""
         K.reset_launches()
         got = cuda_fp.mont_mul(spec, a, b)
         torch.cuda.synchronize()
-        if dict(K.LAUNCHES) != {"mont_mul": 1}:
+        if dict(K.LAUNCHES) != {"mont_mul": 1, f"mont_mul_n{spec.nlimbs}": 1}:
             raise AssertionError(f"K1 {spec.name} {name}: launches {dict(K.LAUNCHES)}")
         return got, check_k1(spec, got, cuda_fp.mont_mul_plain(spec, a, b))
 
@@ -316,6 +321,19 @@ def phase_mont_mul(results):
         f"cuda_fp.mont_mul, copies included: per call {e_ms:.4f} ms, device {e_dev:.4f} ms")
     results["mont_mul"] = dict(max_abs_err=max_err, ms=k_ms, plain_ms=p_ms,
                                bound_ms=b_ms, bound_by=b_by)
+    # the BGV shape of phase 6: [3, 1024] products of 51 limbs (MNT4Q, the
+    # SHE ciphertext ring)
+    _, a = _rand_fp(MNT4Q, 3 << 10, rng, dev)
+    a = a.reshape((3, 1 << 10))
+    b = a + a
+    k_ms = device_ms(lambda: cuda_fp.mont_mul_cuda(MNT4Q, b.limbs, a.limbs), 20,
+                     "mont_mul_kernel")
+    c_ms = cuda_time_ms(lambda: cuda_fp.mont_mul_cuda(MNT4Q, b.limbs, a.limbs), 20)
+    p_ms = device_ms(lambda: cuda_fp.mont_mul_plain(MNT4Q, b.limbs, a.limbs), 5)
+    n = 3 << 10
+    b_ms, b_by = bound(3 * n * MNT4Q.nlimbs * 8, n * mont_imads(MNT4Q.p.bit_length()))
+    log(f"  K1 MNT4Q [3, 1024] x 51 limbs (the BGV shape of phase 6): device {k_ms:.4f} ms, "
+        f"per call {c_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
 
 
 # Limb vectors that are B = 2^15 in most places (value < 2p): the Jacobian z
@@ -510,6 +528,7 @@ def phase_point_add(results):
             f"plain {p_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
 
 
+@functools.lru_cache(maxsize=None)
 def _load_script(*parts):
     """A script of the repository (not a package module) as a module."""
     import importlib.util
@@ -702,8 +721,6 @@ def phase_pedersen(n_parties=3):
         groups["PyTorch kernels"] = [sum(v[0] for v in other.values()),
                                      sum(v[1] for v in other.values())]
         busy = sum(v[0] for v in groups.values())
-        if busy <= 0:
-            raise AssertionError("the profiler recorded no device time")
         log(f"phase 5 profiled {what}: {wall:.3f} s, device busy {busy:.1f} ms "
             f"({busy / (wall * 1e3):.1%}); " + "; ".join(
                 f"{k} {v[0]:.1f} ms over {v[1]} launches" for k, v in sorted(groups.items())))
@@ -715,6 +732,144 @@ def phase_pedersen(n_parties=3):
     torch.cuda.synchronize()
     log(f"phase 5 warm synthesis alone: {time.time() - t1:.2f} s")
     profiled("warm synthesis", lambda: driver.synthesize_pedersen_cs(n_parties, device=dev))
+    return launches
+
+
+def check_triples(alpha, batch, sample=64):
+    """One `triple_kernel` batch: a*b = c in every slot (opened, compared
+    on the card) and mac = alpha*value on `sample` slots (host ints)."""
+    import torch
+    from zkmpc_tpu_torch.mpc.share import _sum_axis0
+    from zkmpc_tpu_torch.ops.limbs import FR
+    a, ma, b, mb, c, mc = batch
+    va, vb, vc = (_sum_axis0(x) for x in (a, b, c))
+    if not bool(torch.equal((va * vb).canon_limbs(), vc.canon_limbs())):
+        raise AssertionError("a preprocessing triple has a*b != c")
+    n = va.shape[0]
+    idx = torch.linspace(0, n - 1, min(sample, n), device=va.limbs.device).long()
+    for v, m in ((va, ma), (vb, mb), (vc, mc)):
+        vals = v[idx].to_ints().tolist()
+        macs = _sum_axis0(m)[idx].to_ints().tolist()
+        if macs != [alpha * x % FR.p for x in vals]:
+            raise AssertionError("a preprocessing MAC is not alpha * value")
+    return n
+
+
+def phase_main(slots=1024, n_parties=3, rate_slots=(1024, 8192)):
+    """Phase 6: the port's `main` binary, `cli.main.run("groth16",
+    inputs/inputs-template.json)` at `slots` slots and `n_parties` parties
+    on the card (SHE preprocessing with ZKPoPKs, the committed-input
+    circuit proved on SHE triples, the ark blob verified, a wrong instance
+    rejected, the parties' files read back), with the kernel counts reset
+    just before and read just after; then warm `triple_kernel` rates at
+    `rate_slots` and at the online source's batch, every triple checked,
+    and one triple batch under the profiler.  (K1's own time at the BGV
+    shape is phase 2's.)"""
+    import tempfile
+
+    import torch
+    from zkmpc_tpu_torch.cli import main as CLI
+    from zkmpc_tpu_torch.ops import build as K
+    from zkmpc_tpu_torch.ops.limbs import FR
+    from zkmpc_tpu_torch.she import bgv
+    from zkmpc_tpu_torch.she import preprocessing as PP
+    from zkmpc_tpu_torch.utils import serialize as SER
+    dev = torch.device(DEVICE)
+    inputs = os.path.join(ROOT, "inputs", "inputs-template.json")
+    report = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    with tempfile.TemporaryDirectory() as out:
+        t0 = time.time()
+        ok = CLI.run("groth16", inputs, n_parties=n_parties, outdir=out, slots=slots,
+                     device=dev, report=report)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = dict(K.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        files = []
+        for i in range(n_parties):
+            path = os.path.join(out, str(i), "online_setup.json")
+            party, r, mac = SER.read_online_setup(path)
+            beta, br = SER.read_online_setup_bracket(path)
+            if party != i or len(r) != slots or len(mac) != slots or len(br) != n_parties \
+                    or beta is None:
+                raise AssertionError(f"phase 6: party {i}'s online_setup.json is incomplete")
+            files.append(path)
+        with open(os.path.join(out, "proof.bin"), "rb") as f:
+            if len(f.read()) != 192:
+                raise AssertionError("phase 6: the proof blob is not 192 bytes")
+    if not (ok and report["verified"] and report["wrong_instance_rejected"]):
+        raise AssertionError(f"phase 6: verification failed ({report})")
+    if report["prove_openings"] <= 0 or report["synthesis_openings"] <= 0:
+        raise AssertionError("phase 6: the synthesis or the prove opened nothing")
+    if min(report["synthesis_served"]["triple"], report["prove_served"]["triple"]) <= 0:
+        raise AssertionError("phase 6: the synthesis or the prove took no preprocessed triple")
+    if launches.get("mont_mul_n51", 0) <= 0:
+        raise AssertionError(f"phase 6: K1 never ran at 51 limbs ({launches})")
+    log(f"phase 6 main ({slots} slots, {n_parties} parties): preprocessing make_dealer "
+        f"{report['make_dealer_s']:.3f} s, initialize {report['initialize_s']:.3f} s "
+        f"(ZKPoPKs accepted), pair {report['pair_s']:.3f} s, triple {report['triple_s']:.3f} s "
+        f"(a*b = c in all {slots} slots)")
+    log(f"phase 6 prove: {report['constraints']} constraints, {report['variables']} "
+        f"variables; synthesis {report['synthesis_s']:.2f} s "
+        f"({report['synthesis_openings']} openings; preprocessing batches run "
+        f"{report['synthesis_batches']}, slots served {report['synthesis_served']}), setup "
+        f"{report['setup_s']:.2f} s, prove {report['prove_s']:.2f} s "
+        f"({report['prove_openings']} openings; batches run {report['prove_batches']}, slots "
+        f"served {report['prove_served']}); wall-clock in all {wall:.2f} s; peak device memory "
+        f"{peak} B ({peak / 2**30:.2f} GiB)")
+    log(f"phase 6 source: triple batches of {report['triple_batch_slots']} slots "
+        f"({report['triple_batch_slots'] // slots} ciphertexts of {slots}); "
+        f"batches run in all {report['batches']}")
+    log(f"phase 6 verification: the parsed ark blob verifies, a wrong instance is rejected, "
+        f"instance {report['instance'][:1]} + commitment; {len(files)} online_setup.json "
+        f"files written and read back")
+    log(f"phase 6 launches: {launches}; K1 by width: " + ", ".join(
+        f"{k[len('mont_mul_'):]} {v}" for k, v in sorted(launches.items())
+        if k.startswith("mont_mul_n")))
+
+    # warm triple rates, each batch checked: one ciphertext at each of
+    # `rate_slots`, then the online source's batch (`report["triple_batch_slots"]`
+    # slots as ciphertexts of `slots` slots)
+    dealers = {}
+    cts_source = report["triple_batch_slots"] // slots
+    for n_slots, cts in [(n, 1) for n in rate_slots] + [(slots, cts_source)]:
+        gen = torch.Generator(dev).manual_seed(n_slots + cts)
+        if n_slots not in dealers:
+            t1 = time.time()
+            ctx = PP.make_dealer(bgv.SheParams(n_slots), n_parties, gen, device=dev)
+            PP.initialize(ctx, gen)
+            torch.cuda.synchronize()
+            dealers[n_slots] = (ctx, time.time() - t1)
+        ctx, t_init = dealers[n_slots]
+        alpha = sum(ctx.alpha_shares.to_ints().tolist()) % FR.p
+        check_triples(alpha, PP.triple_kernel(ctx, gen, cts))       # warm-up, checked
+        reps = 3
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t1 = time.time()
+            batch = PP.triple_kernel(ctx, gen, cts)
+            torch.cuda.synchronize()
+            times.append(time.time() - t1)
+            check_triples(alpha, batch)
+        best, total = min(times), n_slots * cts
+        log(f"phase 6 triples, {cts} ciphertext(s) of {n_slots} slots: make_dealer + "
+            f"initialize {t_init:.3f} s; warm triple_kernel {', '.join(f'{x:.4f}' for x in times)}"
+            f" s: {total / best:.0f} triples/s at the best, {total * reps / sum(times):.0f} on "
+            f"average; a*b = c in every slot, mac = alpha*value on 64 slots")
+        if (n_slots, cts) == (slots, 1):
+            tool = _load_script("tools", "profile_prove.py")
+            wall_p, ours, other = tool.profile_call(lambda: PP.triple_kernel(ctx, gen))
+            for name, (ms_, cnt) in sorted(ours.items()):
+                log(f"  profiled triple batch: {name} {ms_:.2f} ms over {cnt} launches")
+            busy = sum(v[0] for v in ours.values()) + sum(v[0] for v in other.values())
+            log(f"phase 6 profiled triple batch ({n_slots} slots): {wall_p:.3f} s, device "
+                f"busy {busy:.1f} ms ({busy / (wall_p * 1e3):.1%}); PyTorch kernels "
+                f"{sum(v[0] for v in other.values()):.1f} ms over "
+                f"{sum(v[1] for v in other.values())} launches")
     return launches
 
 
@@ -737,7 +892,9 @@ def main(argv=None):
     phase_fixture()
     wide = phase_slice(args.gates)
     ped = phase_pedersen()
-    launches = {k: wide.get(k, 0) + ped.get(k, 0) for k in set(wide) | set(ped)}
+    main_bin = phase_main()
+    paths = (wide, ped, main_bin)
+    launches = {k: sum(p.get(k, 0) for p in paths) for k in set().union(*paths)}
     bad = sorted(m for m in sys.modules if m in ("jax", "zkmpc_tpu")
                  or m.startswith(("jax.", "jaxlib", "zkmpc_tpu.")))
     if bad:

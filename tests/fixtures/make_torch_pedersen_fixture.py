@@ -48,7 +48,8 @@ def gadget_circuit(pkg, cs, a, b, c, rnd):
     """The gadget case, written once for either package: ``pkg`` its name
     (``zkmpc_tpu`` or ``zkmpc_tpu_torch``), a and b shared wires of A_INT
     and B_INT, c a public wire of C_INT, ``rnd`` a JAX key or a
-    torch.Generator."""
+    torch.Generator.  Returns the outputs of the batched forms and of the
+    scalar forms on the same wires, by gadget name: {name: [FpVar]}."""
     G = importlib.import_module(f"{pkg}.snark.gadgets")
     PG = importlib.import_module(f"{pkg}.circuits.pedersen_gadget")
     PD = importlib.import_module(f"{pkg}.crypto.pedersen")
@@ -82,6 +83,10 @@ def gadget_circuit(pkg, cs, a, b, c, rnd):
     zs = G.is_zero_many([x - A_INT, y], rnd)            # 1, 0
     lts = G.less_than_many([(x, y), (y, x)], rnd)       # 1, 0
     Boolean.kary_and([zs[0], zs[1].not_(), lts[0], lts[1].not_(), by[2]]).enforce_true()
+    out = {"mul_many": [p1], "mul": [prod], "matmul": [mm],
+           "to_bits_many": [v.var for v in bx + by], "to_bits": [v.var for v in bits],
+           "is_zero_many": [v.var for v in zs], "is_zero": [z.var, nz.var],
+           "less_than_many": [v.var for v in lts]}
     # the two-to-one CRH over shared bits, then a variable-base product
     cp = PD.CrhParams.sample(4)
     h = PG.pedersen_two_to_one_crh_gadget(cs, bx[:2], by[:2], cp)
@@ -93,6 +98,7 @@ def gadget_circuit(pkg, cs, a, b, c, rnd):
     pp = PD.PedersenParams.sample(7)
     PG.pedersen_commit_gadget(cs, bx[:2], by[:1], pp).enforce_equal(
         PG.TEAffineVar.constant(cs, PD.commit_public_ints(pp, 3, 1)))
+    return out
 
 
 def record(cs, opened) -> dict:

@@ -35,12 +35,13 @@ def _fp(spec, ints, dev):
 
 
 def _one_launch(spec, a, b):
-    """K1 through the wrapper: one launch, no operand copy, and the same
-    values as the plain version (mod p, below 2p, limbs below 2^15)."""
+    """K1 through the wrapper: one launch, counted at its width, no operand
+    copy, and the same values as the plain version (mod p, below 2p, limbs
+    below 2^15)."""
     K.reset_launches()
     got = cuda_fp.mont_mul(spec, a, b)
     torch.cuda.synchronize()
-    assert dict(K.LAUNCHES) == {"mont_mul": 1}
+    assert dict(K.LAUNCHES) == {"mont_mul": 1, f"mont_mul_n{spec.nlimbs}": 1}
     assert check_k1(spec, got, cuda_fp.mont_mul_plain(spec, a, b)) == 0
     return got
 
@@ -91,6 +92,36 @@ def test_mont_mul_kernel_reads_strided_and_broadcast_operands(spec, dev):
         y = d.fft(x)
         assert K.LAUNCHES["mont_mul"] >= d.log_n and K.LAUNCHES[cuda_fp.COPY_COUNT] == 0
         assert [list(r) for r in d.ifft(y).to_ints()] == [list(r) for r in x.to_ints()]
+
+
+def test_negacyclic_mul_runs_k1_at_51_limbs(dev):
+    """One BGV ring product (`she.ring.negacyclic_mul`) at 1,024 slots on
+    the card launches K1 at 51 limbs for every one of its Montgomery
+    products, as many as its plain route makes on the CPU, and no other
+    width; the product equals the CPU's."""
+    from zkmpc_tpu_torch.she import ring
+    rng = random.Random(4)
+    n = 1024
+    a = _fp(MNT4Q, [rng.randrange(MNT4Q.p) for _ in range(3 * n)], dev).reshape((3, n))
+    b = _fp(MNT4Q, [rng.randrange(MNT4Q.p) for _ in range(n)], dev)
+    plain = []
+    orig = cuda_fp.mont_mul_plain
+
+    def counted(spec, x, y):
+        plain.append(spec.nlimbs)
+        return orig(spec, x, y)
+    cuda_fp.mont_mul_plain = counted
+    try:
+        want = ring.negacyclic_mul(a.to("cpu"), b.to("cpu"))
+    finally:
+        cuda_fp.mont_mul_plain = orig
+    ring.negacyclic_mul(a, b)                   # tables made, then counted
+    K.reset_launches()
+    got = ring.negacyclic_mul(a, b)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["mont_mul_n51"] == K.LAUNCHES["mont_mul"] == len(plain) > 0
+    assert set(plain) == {MNT4Q.nlimbs}
+    assert torch.equal(got.canon_limbs().cpu(), want.canon_limbs())
 
 
 @pytest.mark.parametrize("g2", [False, True], ids=["g1", "g2"])

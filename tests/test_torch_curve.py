@@ -105,6 +105,21 @@ def test_scalar_mul_matches_spec(group, nbits):
     assert got == [mul(mul(gen, 3 + i), k) for i, k in enumerate(ks)]
 
 
+@pytest.mark.parametrize("group,nbits", [(G1, None), (G2, 64)], ids=["g1", "g2"])
+def test_fixed_base_mul_matches_spec(group, nbits):
+    """One base point broadcast against a [2, 3] batch of scalars (as the
+    setup's query products and the group triples use the ladder) against
+    `spec.curves` on 0, 1, the top scalar and random ones."""
+    gen, mul, _, _, make = group
+    rng = np.random.default_rng(8)
+    top = TL.FR.p - 1 if nbits is None else 2**nbits - 1
+    ks = [0, 1, top] + [int(x) for x in rng.integers(1, 2**62, 3)]
+    sc = TL.FpArray.from_int(TL.FR, np.asarray(ks, dtype=object).reshape(2, 3), device=CPU)
+    got = TC.sw_scalar_mul(make([gen], CPU)[0], sc, nbits)
+    assert got.shape == (2, 3)
+    assert got.reshape((6,)).to_affine_ints() == [mul(gen, k) for k in ks]
+
+
 def test_scalar_bits_are_integer_bits():
     ks = [0, 5, TL.FR.p - 1, 2**200 + 17]
     bits = TC.scalar_bits(TL.FpArray.from_int(TL.FR, np.asarray(ks, dtype=object),

@@ -86,6 +86,24 @@ def test_mont_mul_plain_matches_pallas_interpret(spec):
     np.testing.assert_array_equal(got.numpy(), want.astype(np.int64))
 
 
+@pytest.mark.parametrize("spec", [TL.FR, TL.MNT4Q], ids=["bls12_377_fr", "mnt4_753_fq"])
+def test_mont_mul_plain_chunks_equal_one_pass(spec):
+    """Past PLAIN_CHUNK rows the plain twin runs in chunks on a CPU: the
+    same limbs as one pass over the whole batch, for operands of one shape
+    and for a row of constants broadcast against a [3, k] batch."""
+    k = cuda_fp.PLAIN_CHUNK // 2 + 7                  # 3k rows: a full chunk and a part
+    rng = np.random.default_rng(4)
+    a = TL.FpArray.from_int(spec, np.asarray(rand_ints(rng, spec.p, 3 * k), dtype=object)
+                            .reshape(3, k), device=CPU)
+    b = TL.FpArray.from_int(spec, np.asarray(rand_ints(rng, spec.p, k), dtype=object),
+                            device=CPU)
+    a2 = a + a                                        # relaxed limbs, bound 2
+    for la, lb in ((a2.limbs, (a + a).limbs), (a2.limbs, b.limbs)):
+        got = cuda_fp.mont_mul_plain(spec, la, lb)
+        assert got.shape == (3, k, spec.nlimbs)
+        assert torch.equal(got, cuda_fp._mont_mul_rows(spec, la, lb))
+
+
 def test_wrappers_use_plain_twin_on_cpu_and_refuse_cpu_tensors_for_kernel():
     spec = TL.FQ
     _, _, a, b = _pair(spec, 4, seed=3)
@@ -172,7 +190,9 @@ def test_ints_to_limbs_roundtrip():
 
 def test_port_never_imports_jax():
     """Importing every module of the port and ``chip_smoke``, in a fresh
-    interpreter, loads no part of JAX and no module of the JAX package."""
+    interpreter, loads no part of JAX and no module of the JAX package; the
+    modules include the SHE layer, the run configuration, the hex-JSON
+    files, the ark blob, the committed-input circuit and the `main` binary."""
     code = (
         "import pkgutil, sys, importlib\n"
         "import zkmpc_tpu_torch as P\n"
@@ -181,7 +201,10 @@ def test_port_never_imports_jax():
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'zkmpc_tpu')\n"
         "             or m.startswith(('jax.', 'jaxlib', 'zkmpc_tpu.')))\n"
-        "assert len(mods) >= 36, mods\n"
+        "assert len(mods) >= 46, mods\n"
+        "new = {'she.ring', 'she.bgv', 'she.preprocessing', 'config', 'utils.serialize',\n"
+        "       'circuits.input_circuit', 'cli.main', 'compat.ark'}\n"
+        "assert {'zkmpc_tpu_torch.' + m for m in new} <= set(mods), mods\n"
         "assert not bad, bad\n"
         "print('ok', len(mods))\n")
     env = dict(os.environ, PYTHONPATH=ROOT)

@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from fixtures import make_torch_pedersen_fixture as PF
-from torch_parity import CPU, check_circuit
+from torch_parity import CPU, check_circuit, fewer_attempts
 from zkmpc_tpu.crypto import pedersen as JPD
 from zkmpc_tpu_torch.crypto import pedersen as TPD
 from zkmpc_tpu_torch.mpc import te as TE
@@ -76,12 +76,19 @@ def test_mpc_commitment_and_te_points_match_spec():
 
 
 def _port_pedersen_cs():
-    return driver.synthesize_pedersen_cs(PF.N_PARTIES, nbits=PF.NBITS, device=CPU)
+    with fewer_attempts():
+        return driver.synthesize_pedersen_cs(PF.N_PARTIES, nbits=PF.NBITS, device=CPU)
 
 
-def test_pedersen_circuit_matches_reference():
+@pytest.fixture(scope="module")
+def pedersen_cs():
+    """The 4+4-bit circuit, synthesized once for the module."""
+    return _port_pedersen_cs()
+
+
+def test_pedersen_circuit_matches_reference(pedersen_cs):
     fx = PF.load(np.load(PF.PATH))["pedersen"]
-    cs = _port_pedersen_cs()
+    cs = pedersen_cs
     check_circuit(cs, fx)
     assert fx["instance"] == driver.expected_pedersen_instance(PF.NBITS)
     assert fx["counts"]["constraints"] == 40     # 8 bits take the tree path
@@ -97,17 +104,18 @@ def test_circuits_against_live_reference():
     check_circuit(port_gadget_cs(), fx["gadgets"])
 
 
-def test_pedersen_prove_verifies(monkeypatch):
+def test_pedersen_prove_verifies(monkeypatch, pedersen_cs):
     """Setup and a prove of the 4+4-bit circuit with injected r/s: the proof
     verifies and a wrong instance is rejected.  The ~40-point MSMs take the
     ladder path here (the card runs the bucketed path in `chip_smoke.py`);
     an MSM's value does not depend on the path."""
     monkeypatch.setattr(OM, "MIN_BUCKETED_POINTS", 1 << 30)
-    dpk = groth16.device_setup(_port_pedersen_cs(), seed=1, device=CPU)
+    dpk = groth16.device_setup(pedersen_cs, seed=1, device=CPU)
     step, args = driver.make_pedersen_prove_fn(dpk, PF.N_PARTIES, nbits=PF.NBITS)
     r, s = (_fr(v) for v in ([5, 7, 9], [2, 3, 4]))
     t = StackedTransport(PF.N_PARTIES, CPU)
-    proof = driver.proof_arrays_to_ints(step(*args, r=r, s=s, transport=t))
+    with fewer_attempts():
+        proof = driver.proof_arrays_to_ints(step(*args, r=r, s=s, transport=t))
     assert t.stats.rounds > 0                  # the prove ran on the given transport
     inst = driver.expected_pedersen_instance(PF.NBITS)
     assert all(pt is not None for pt in proof)

@@ -7,12 +7,16 @@ the port's).
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
+import pytest
 import torch
 
 from zkmpc_tpu.ops import curve as JC
 from zkmpc_tpu.ops import fp2 as JF2
 from zkmpc_tpu.ops import limbs as JL
+from zkmpc_tpu_torch.mpc import bits as TB
 from zkmpc_tpu_torch.ops import curve as TC
 from zkmpc_tpu_torch.ops import fp2 as TF2
 from zkmpc_tpu_torch.ops import limbs as TL
@@ -102,3 +106,23 @@ def check_circuit(cs, fx, n_parties=3):
         z = [int(v) for v in cs.full_assignment().reveal().to_ints()[0]]
         assert z == fx["assignment"]
         assert cs.is_satisfied_ints()
+
+
+#: candidates of `mpc.bits.rand_number_bitwise` in the tests' circuits (the
+#: library's default is 16): the matrices, instance and opened assignment
+#: of a circuit, and every opened output, do not depend on them, and the
+#: prefix-product loop over the candidates still runs two levels
+ATTEMPTS = 4
+
+
+@contextlib.contextmanager
+def fewer_attempts(n: int = ATTEMPTS):
+    """Within the block, the bit protocols draw ``n`` candidates for each
+    random bitwise-shared value, whatever their callers ask for."""
+    orig = TB.rand_number_bitwise
+
+    def draw(generator, spec, shape=(), attempts=16, raw=None):
+        return orig(generator, spec, shape, n, raw)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(TB, "rand_number_bitwise", draw)
+        yield

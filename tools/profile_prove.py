@@ -23,6 +23,7 @@ import argparse
 import collections
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -31,32 +32,50 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def kernel_group(name):
+    """K1/K2/K3 by kernel name, K1 split by limb width ("K1 mont_mul n18")."""
     if "point_add_kernel" in name:
         return "K3 point_add<F2>" if "F2" in name else "K2 point_add<F1>"
     if "mont_mul_kernel" in name:
-        return "K1 mont_mul"
+        m = re.search(r"mont_mul_kernel<(\d+)", name)
+        return f"K1 mont_mul n{m.group(1)}" if m else "K1 mont_mul"
     return None
 
 
-def profile_call(fn):
-    """One call of fn, ended by a synchronize, under torch.profiler.
-    Returns (wall s, {K1/K2/K3 group: [device ms, launches]}, {other
-    kernel name: [device ms, launches]}) summed over every device event."""
+def device_events(fn, sessions=5, before=None):
+    """One call of fn, ended by a synchronize, under torch.profiler: (wall
+    s, [(kernel name, device us)]) of every device event.  A session on the
+    card now and then records no device event at all (PERF.md section 7);
+    such a session is run again, ``before()`` first where given, up to
+    ``sessions`` in all, and then this raises."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.time()
-        fn()
+    for _ in range(sessions):
+        if before is not None:
+            before()
         torch.cuda.synchronize()
-        wall = time.time() - t0
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.time()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+        evs = [(ev.name, ev.time_range.elapsed_us()) for ev in prof.events()
+               if ev.device_type == torch.autograd.DeviceType.CUDA]
+        if sum(us for _, us in evs) > 0:
+            return wall, evs
+    raise RuntimeError(f"torch.profiler recorded no device event in {sessions} sessions")
+
+
+def profile_call(fn, before=None):
+    """`device_events` of one call of fn, grouped: (wall s, {K1/K2/K3
+    group: [device ms, launches]}, {other kernel name: [device ms,
+    launches]})."""
+    wall, evs = device_events(fn, before=before)
     ours = collections.defaultdict(lambda: [0.0, 0])
     other = collections.defaultdict(lambda: [0.0, 0])
-    for ev in prof.events():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        group = kernel_group(ev.name)
-        acc = ours[group] if group else other[ev.name]
-        acc[0] += ev.time_range.elapsed_us() / 1e3
+    for name, us in evs:
+        group = kernel_group(name)
+        acc = ours[group] if group else other[name]
+        acc[0] += us / 1e3
         acc[1] += 1
     return wall, dict(ours), dict(other)
 
@@ -66,8 +85,6 @@ def k1_device_ms(dev, reps=20):
     slice's NTT-stage shape, FR [3, 2^14], on a relaxed operand (a + a, as
     the NTT's odd half is) times a canonical one."""
     import numpy as np
-    import torch
-    from torch.profiler import ProfilerActivity, profile
     from zkmpc_tpu_torch.ops import cuda_fp
     from zkmpc_tpu_torch.ops.limbs import FR, FpArray
     rng = np.random.default_rng(3)
@@ -75,14 +92,11 @@ def k1_device_ms(dev, reps=20):
     a = FpArray.from_int(FR, np.asarray(ints, dtype=object).reshape(3, 1 << 14), device=dev)
     b = a + a
     cuda_fp.mont_mul_cuda(FR, b.limbs, a.limbs)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            cuda_fp.mont_mul_cuda(FR, b.limbs, a.limbs)
-        torch.cuda.synchronize()
-    us = sum(ev.time_range.elapsed_us() for ev in prof.events()
-             if ev.device_type == torch.autograd.DeviceType.CUDA
-             and "mont_mul_kernel" in ev.name)
+    _, evs = device_events(lambda: [cuda_fp.mont_mul_cuda(FR, b.limbs, a.limbs)
+                                    for _ in range(reps)])
+    us = sum(t for name, t in evs if "mont_mul_kernel" in name)
+    if us <= 0:
+        raise RuntimeError("the profiler recorded no mont_mul_kernel event")
     return us / reps / 1e3
 
 
@@ -110,8 +124,7 @@ def main(argv=None):
     step(*call)
     torch.cuda.synchronize()
     wall = time.time() - t0
-    K.reset_launches()
-    prof_wall, ours, other = profile_call(lambda: step(*call))
+    prof_wall, ours, other = profile_call(lambda: step(*call), before=K.reset_launches)
     launches = dict(K.LAUNCHES)
     k1_ms = k1_device_ms(dev)
     busy = sum(v[0] for v in ours.values()) + sum(v[0] for v in other.values())

@@ -14,6 +14,7 @@ reference, so both packages derive the same points from a seed.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import random
 
 import numpy as np
@@ -45,10 +46,17 @@ class PedersenParams:
     @classmethod
     def sample(cls, seed: int = 0):
         """Derive the generators deterministically: G_i = k_i * G with k_i
-        drawn from ``random.Random(seed)``."""
-        rng = random.Random(seed)
-        gens = _sample_points(rng, NBITS)
-        return cls(gens, _sample_points(rng, 1)[0])
+        drawn from ``random.Random(seed)`` (derived once per seed: some
+        seconds of Python integer arithmetic)."""
+        gens, blind = _sampled(seed)
+        return cls(list(gens), blind)
+
+
+@functools.lru_cache(maxsize=None)
+def _sampled(seed: int):
+    rng = random.Random(seed)
+    gens = _sample_points(rng, NBITS)
+    return tuple(gens), _sample_points(rng, 1)[0]
 
 
 def commit(pp: PedersenParams, m: MpcFp, r_bits: MpcFp, generator) -> TE.MpcTEPoint:

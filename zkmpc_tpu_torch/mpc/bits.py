@@ -199,7 +199,8 @@ def bit_rand(generator, spec: FieldSpec, shape=(), raw=None) -> MpcFp:
     P_ = t.n_parties
     shape = tuple(shape)
     if raw is None:
-        raw = torch.rand((P_,) + shape, generator=generator) < 0.5
+        raw = torch.rand((P_,) + shape, generator=generator,
+                         device=generator.device) < 0.5
     raw = torch.as_tensor(raw, dtype=torch.bool).to(t.device)
     assert tuple(raw.shape) == (P_,) + shape, raw.shape
     one = spec.const("one_limbs", t.device)

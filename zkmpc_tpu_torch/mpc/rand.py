@@ -25,9 +25,10 @@ def _raw_half_range(raw, spec: FieldSpec) -> FpArray:
 
 
 def draw_bits(generator: torch.Generator, spec: FieldSpec, shape):
-    """Raw 15-bit limb draws [*shape, nlimbs] from ``generator`` (CPU)."""
+    """Raw 15-bit limb draws [*shape, nlimbs] from ``generator``, made on
+    the generator's device."""
     return torch.randint(0, 1 << W, tuple(shape) + (spec.nlimbs,),
-                         generator=generator, dtype=_I64)
+                         generator=generator, dtype=_I64, device=generator.device)
 
 
 def uniform_fp(generator, spec: FieldSpec, shape=(), device="cuda",

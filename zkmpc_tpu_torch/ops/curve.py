@@ -226,17 +226,27 @@ def _point_bound2(p: SWPoint) -> SWPoint:
                    p.inf)
 
 
+def _bcast_sw(points: SWPoint, shape) -> SWPoint:
+    shape = tuple(shape)
+    return SWPoint(points.x.broadcast_to(shape), points.y.broadcast_to(shape),
+                   points.z.broadcast_to(shape), points.inf.expand(shape))
+
+
 def sw_scalar_mul(points: SWPoint, scalars: FpArray, nbits: int | None = None
                   ) -> SWPoint:
-    """Batched double-and-add: out_i = scalars_i * points_i.
+    """Batched double-and-add: out_i = scalars_i * points_i, the points
+    broadcasting against the scalars' batch shape (a point that several
+    lanes share, such as an MSM base under every party's shares, is doubled
+    once).
 
     All ladder steps below the top bit avoid SW exceptional cases
     (acc = (s mod 2^b)*P and base = 2^b*P collide only at b = nbits-1); the
     top step uses `sw_add_complete`."""
     nbits = nbits or scalars.spec.p.bit_length()
     bits = scalar_bits(scalars, nbits) > 0          # [..., nbits]
-    acc = _point_bound2(SWPoint.infinity_like(points))
     base = _point_bound2(points.tighten())
+    shape = torch.broadcast_shapes(tuple(points.shape), tuple(scalars.shape))
+    acc = _point_bound2(SWPoint.infinity_like(_bcast_sw(base, shape)))
     for b in range(nbits - 1):
         added = sw_add_unsafe(acc, base)
         acc = SWPoint.select(bits[..., b], added, acc)

@@ -521,3 +521,23 @@ class FpArray:
 
     def __repr__(self):
         return f"FpArray({self.spec.name}, shape={self.shape}, bound={self.bound})"
+
+
+def fp_from_u32(spec: FieldSpec, vals) -> FpArray:
+    """Small nonnegative integers (an integer tensor, values below 2^30) ->
+    Montgomery-form FpArray on the tensor's device: two 15-bit limbs, then
+    one REDC by R^2 (K1 on a CUDA tensor).  Bits from 2^30 up are dropped,
+    as the reference's u32 form drops them."""
+    vals = torch.as_tensor(vals).to(_I64)
+    raw = torch.zeros(vals.shape + (spec.nlimbs,), dtype=_I64, device=vals.device)
+    raw[..., 0] = vals & MASK
+    raw[..., 1] = (vals >> W) & MASK
+    out = _mont_mul_limbs(spec, raw, spec.const("r2_limbs", vals.device))
+    return FpArray(out, spec, 2)
+
+
+def fp_geq_const(x_int_limbs, spec: FieldSpec, k: int):
+    """x >= k for canonical integer limbs (from ``int_limbs()``) against a
+    host int."""
+    kl = torch.as_tensor(int_to_limbs(k, spec.nlimbs), device=x_int_limbs.device)
+    return _geq(x_int_limbs, kl)

@@ -10,17 +10,11 @@ from __future__ import annotations
 
 import torch
 
-from .curve import SWPoint, _point_bound2, sw_add_complete, sw_scalar_mul
+from .curve import SWPoint, _bcast_sw, _point_bound2, sw_add_complete, sw_scalar_mul
 from .fp2 import Fp2Array
 from .limbs import FpArray
 
 MIN_BUCKETED_POINTS = 16
-
-
-def _bcast_sw(points: SWPoint, shape) -> SWPoint:
-    shape = tuple(shape)
-    return SWPoint(points.x.broadcast_to(shape), points.y.broadcast_to(shape),
-                   points.z.broadcast_to(shape), points.inf.expand(shape))
 
 
 def sw_msm(points: SWPoint, scalars: FpArray, nbits: int | None = None) -> SWPoint:
@@ -29,8 +23,7 @@ def sw_msm(points: SWPoint, scalars: FpArray, nbits: int | None = None) -> SWPoi
     if N >= MIN_BUCKETED_POINTS and len(points.shape) == 1:
         from .msm_pippenger import sw_msm_bucketed
         return sw_msm_bucketed(points, scalars, nbits=nbits)
-    pts = _bcast_sw(points, scalars.shape)
-    prods = sw_scalar_mul(pts, scalars, nbits)
+    prods = sw_scalar_mul(points, scalars, nbits)
     return _sw_reduce_last(prods)
 
 
@@ -78,8 +71,7 @@ def _sw_msm_ladders(points_list, scalars_list, nbits):
     (lanes are independent, so each product is what its own ladder gives),
     then one masked fold per MSM."""
     sizes = [s.shape[-1] for s in scalars_list]
-    pts = SWPoint.concat([_bcast_sw(p, s.shape) for p, s in
-                          zip(points_list, scalars_list)], axis=-1)
+    pts = SWPoint.concat(list(points_list), axis=-1)
     scal = FpArray.concat(scalars_list, axis=-2)
     prods = sw_scalar_mul(pts, scal, nbits)
     out, start = [], 0

@@ -24,7 +24,6 @@ from ..mpc import share as MS
 from ..mpc.group import MpcSWPoint, mpc_msm, mpc_msm_many, scale_sum
 from ..mpc.share import MpcFp
 from ..ops import curve as OC
-from ..ops import msm as OM
 from ..ops.curve import SWPoint
 from ..ops.limbs import FR, FpArray
 from ..ops.ntt import Domain
@@ -145,7 +144,7 @@ def _fixed_base_muls(gen_affine, g2: bool, scalars, device):
     make = SWPoint.g2_from_affine_ints if g2 else SWPoint.g1_from_affine_ints
     base = make([gen_affine], device)
     s = FpArray.from_int(FR, np.asarray(scalars, dtype=object), device=device)
-    return OC.sw_scalar_mul(OM._bcast_sw(base[0], s.shape), s)
+    return OC.sw_scalar_mul(base[0], s)
 
 
 def device_setup(cs: ConstraintSystem, seed: int = 0, device="cuda"
