@@ -16,7 +16,11 @@ shares and requires that package's proof.  Phase 6 runs the `main` binary
 (keys, initialize with ZKPoPKs, pair, triple; K1 at 51 limbs) feeding the
 committed-input circuit's prove, its parsed proof blob verified and a
 wrong instance rejected; then checked triple batches timed at 1,024 and
-8,192 slots.
+8,192 slots.  Phase 7 runs the same binary on the SPDZ backend
+(``--backend spdz``): MACs on every field and group share, both MAC
+checks passed with residues in their queues; then a tampered field share
+and a tampered group share must fail their checks on the card, and a
+MAC'd plus a MAC-less group share must raise.
 
     python3 chip_smoke.py              # needs one CUDA card
     python3 chip_smoke.py --gates 64   # a quicker main-path run
@@ -870,7 +874,177 @@ def phase_main(slots=1024, n_parties=3, rate_slots=(1024, 8192)):
                 f"busy {busy:.1f} ms ({busy / (wall_p * 1e3):.1%}); PyTorch kernels "
                 f"{sum(v[0] for v in other.values()):.1f} ms over "
                 f"{sum(v[1] for v in other.values())} launches")
+    return launches, report
+
+
+PHASE_TIMES = ("make_dealer_s", "initialize_s", "pair_s", "triple_s", "synthesis_s",
+               "setup_s", "prove_s")
+
+
+def phase_spdz(semi, slots=1024, n_parties=3):
+    """Phase 7: the `main` binary on the SPDZ backend, `cli.main.run(
+    "groth16", inputs/inputs-template.json, backend="spdz")` at `slots`
+    slots and `n_parties` parties on the card, with the kernel counts reset
+    just before and read just after: every field and group share carries
+    MAC shares under the preprocessed key, and after the prove the field
+    and group MAC checks must pass with residues in both queues; the
+    parsed proof blob verifies and a wrong instance is rejected.  Then, on
+    the card, a share that party 1 tampers with must fail its check, and a
+    MAC'd plus a MAC-less group share must raise.  ``semi``: phase 6's
+    report, whose phase times are logged beside these."""
+    import tempfile
+
+    import torch
+    from zkmpc_tpu_torch.cli import main as CLI
+    from zkmpc_tpu_torch.ops import build as K
+    dev = torch.device(DEVICE)
+    inputs = os.path.join(ROOT, "inputs", "inputs-template.json")
+    report = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    with tempfile.TemporaryDirectory() as out:
+        t0 = time.time()
+        ok = CLI.run("groth16", inputs, n_parties=n_parties, outdir=out, slots=slots,
+                     backend="spdz", device=dev, report=report)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = dict(K.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        with open(os.path.join(out, "proof.bin"), "rb") as f:
+            if len(f.read()) != 192:
+                raise AssertionError("phase 7: the proof blob is not 192 bytes")
+    if not (ok and report["verified"] and report["wrong_instance_rejected"]):
+        raise AssertionError(f"phase 7: verification failed ({report})")
+    if min(report.get("field_mac_residues", 0), report.get("group_mac_residues", 0)) <= 0 \
+            or "mac_check_s" not in report:
+        raise AssertionError(f"phase 7: a MAC queue was empty or unchecked ({report})")
+    missing = [k for k in ("mont_mul_n51", "point_add_g1", "point_add_g2")
+               if launches.get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"phase 7: {missing} never launched ({launches})")
+    log(f"phase 7 main --backend spdz ({slots} slots, {n_parties} parties): the parsed ark "
+        f"blob verifies, a wrong instance is rejected; field MAC check over "
+        f"{report['field_mac_residues']} openings and group MAC check over "
+        f"{report['group_mac_residues']} openings passed in {report['mac_check_s']:.2f} s")
+    log("phase 7 times, spdz (phase 6 semi): " + ", ".join(
+        f"{k[:-2]} {report[k]:.3f} s ({semi[k]:.3f} s)" for k in PHASE_TIMES)
+        + f"; wall-clock in all {wall:.2f} s")
+    log(f"phase 7 source: batches run in synthesis {report['synthesis_batches']}, in the "
+        f"prove {report['prove_batches']}; slots served in synthesis "
+        f"{report['synthesis_served']}, in the prove {report['prove_served']}; openings "
+        f"{report['synthesis_openings']} + {report['prove_openings']} (semi "
+        f"{semi['synthesis_openings']} + {semi['prove_openings']}); {report['constraints']} "
+        f"constraints")
+    log(f"phase 7 launches: {launches}; K1 by width: " + ", ".join(
+        f"{k[len('mont_mul_'):]} {v}" for k, v in sorted(launches.items())
+        if k.startswith("mont_mul_n")) + f"; peak device memory {peak} B "
+        f"({peak / 2**30:.2f} GiB)")
+    spdz_faults_caught(dev, n_parties)
+    time_bit_rand_sqrt(dev, n_parties)
     return launches
+
+
+def time_bit_rand_sqrt(dev, n_parties=3, shape=(16, 253)):
+    """The SPDZ bits' cost on the card: one warm `bit_rand_sqrt` batch at
+    the committed-input circuit's shape (16 candidates x 253 bits), its
+    <r> dealt and its triple the dummy source's so that only the protocol
+    runs, timed to a synchronize, its launches counted; the bits must open
+    to 0/1 and the MAC check pass.  `sqrt_public` alone at that shape too."""
+    import torch
+    from zkmpc_tpu_torch.mpc import bits as B
+    from zkmpc_tpu_torch.mpc import rand as R
+    from zkmpc_tpu_torch.mpc.share import DummyTripleSource, MpcContext, mpc_scope
+    from zkmpc_tpu_torch.ops import build as K
+    from zkmpc_tpu_torch.ops.limbs import FR
+    from zkmpc_tpu_torch.parallel.transport import StackedTransport
+
+    gen = torch.Generator(dev).manual_seed(78)
+    ctx = MpcContext(StackedTransport(n_parties, dev), "spdz", DummyTripleSource(gen),
+                     alpha_share=R.uniform_fp(gen, FR, (n_parties,), device=dev),
+                     mac_check_generator=gen)
+    with mpc_scope(ctx):
+        B.bit_rand_sqrt(gen, FR, shape)                        # warm-up
+        torch.cuda.synchronize()
+        K.reset_launches()
+        t0 = time.time()
+        bits = B.bit_rand_sqrt(gen, FR, shape)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = dict(K.LAUNCHES)
+        opened = bits.reveal()
+        if not bool((opened.is_zero() | opened.equals(1)).all()) or \
+                not ctx.assert_field_macs(True):
+            raise AssertionError("phase 7: bit_rand_sqrt gave a non-bit or failed its MACs")
+        squares = R.uniform_fp(gen, FR, (n_parties,) + shape, device=dev).square()
+        torch.cuda.synchronize()
+        K.reset_launches()
+        t0 = time.time()
+        B.sqrt_public(squares)
+        torch.cuda.synchronize()
+        wall_sqrt = time.time() - t0
+        sqrt_launches = K.LAUNCHES.get("mont_mul", 0)
+    n = n_parties * shape[0] * shape[1]
+    log(f"phase 7 bit_rand_sqrt, one warm batch of {shape[0]} x {shape[1]} bits x "
+        f"{n_parties} parties: {wall:.3f} s, K1 launches {launches.get('mont_mul', 0)}; "
+        f"sqrt_public alone on [{n}] squares: {wall_sqrt:.3f} s, {sqrt_launches} K1 "
+        f"launches; every bit opens to 0 or 1, MACs checked")
+
+
+def spdz_faults_caught(dev, n_parties=3):
+    """On the card: honest field and group openings pass their MAC checks;
+    party 1 adding 1 to a field share (its MAC share kept) fails the field
+    check; party 1 adding G to a group share fails the group check; a
+    MAC'd plus a MAC-less group share raises ValueError."""
+    import numpy as np
+    import torch
+    from zkmpc_tpu_torch.mpc import group as G
+    from zkmpc_tpu_torch.mpc import rand as R
+    from zkmpc_tpu_torch.mpc.share import SHARED, MpcContext, MpcFp, king_share, mpc_scope
+    from zkmpc_tpu_torch.ops.curve import SWPoint, sw_add_complete
+    from zkmpc_tpu_torch.ops.limbs import FR, FpArray
+    from zkmpc_tpu_torch.ops.msm import _bcast_sw
+    from zkmpc_tpu_torch.parallel.transport import StackedTransport
+    from zkmpc_tpu_torch.spec import curves as SC
+
+    gen = torch.Generator(dev).manual_seed(77)
+    ctx = MpcContext(StackedTransport(n_parties, dev), "spdz",
+                     alpha_share=R.uniform_fp(gen, FR, (n_parties,), device=dev),
+                     mac_check_generator=gen)
+    party1 = torch.arange(n_parties, device=dev) == 1
+
+    def fails(check, what):
+        try:
+            check(require_nonempty=True)
+        except AssertionError:
+            return
+        raise AssertionError(f"phase 7: {what} passed its MAC check")
+    with mpc_scope(ctx):
+        x = king_share(FpArray.from_int(FR, np.asarray([5], dtype=object), device=dev), gen)
+        one = FpArray.from_int(FR, np.asarray([[int(b)] for b in party1.tolist()],
+                                              dtype=object), device=dev)
+        if x.reveal().to_ints()[0].tolist() != [5] or not ctx.assert_field_macs(True):
+            raise AssertionError("phase 7: an honest field opening failed")
+        if MpcFp(x.value + one, SHARED, x.mac).reveal().to_ints()[0].tolist() != [6]:
+            raise AssertionError("phase 7: the tampered field share did not open to 6")
+        fails(ctx.assert_field_macs, "a tampered field share")
+        g = SWPoint.g1_from_affine_ints([SC.G1_GEN], dev)[0]
+        pt = G.with_mac_from_public(g)
+        pt.reveal()
+        if not ctx.assert_group_macs(True):
+            raise AssertionError("phase 7: an honest group opening failed")
+        bumped = sw_add_complete(pt.point, _bcast_sw(g, pt.point.shape))
+        G.MpcSWPoint(SWPoint.select(party1, bumped, pt.point), SHARED, pt.mac).reveal()
+        fails(ctx.assert_group_macs, "a tampered group share")
+        try:
+            pt + G.MpcSWPoint(pt.point, SHARED)
+        except ValueError:
+            pass
+        else:
+            raise AssertionError("phase 7: a MAC'd plus a MAC-less group share did not raise")
+    log("phase 7 faults on the card: honest field and group openings pass; party 1's "
+        "+1 on a field share and +G on a group share fail their MAC checks; a MAC'd "
+        "plus a MAC-less group share raises ValueError")
 
 
 def main(argv=None):
@@ -892,8 +1066,9 @@ def main(argv=None):
     phase_fixture()
     wide = phase_slice(args.gates)
     ped = phase_pedersen()
-    main_bin = phase_main()
-    paths = (wide, ped, main_bin)
+    main_bin, semi = phase_main()
+    spdz = phase_spdz(semi)
+    paths = (wide, ped, main_bin, spdz)
     launches = {k: sum(p.get(k, 0) for p in paths) for k in set().union(*paths)}
     bad = sorted(m for m in sys.modules if m in ("jax", "zkmpc_tpu")
                  or m.startswith(("jax.", "jaxlib", "zkmpc_tpu.")))

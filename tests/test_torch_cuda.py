@@ -1,5 +1,5 @@
 """The port's CUDA kernels K1-K3 against their plain PyTorch versions, on a
-CUDA card.
+CUDA card, and the `main` binary on the SPDZ backend there.
 
 Marked ``gpu``; each test skips where no card is present.  The machine with
 the card has no JAX, which the tests' conftest imports, so run them there as
@@ -151,3 +151,19 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     p, q, _, _ = case_points(False, dev, n_lanes=128)
     with pytest.raises(ValueError):
         cuda_point.point_add(p, SWPoint(q.x, q.y, q.z, q.inf.cpu()))
+
+
+def test_main_spdz_runs_on_the_card(dev, tmp_path):
+    """`main groth16 --backend spdz` at 1,024 slots on the card: it exits 0
+    only if the proof verifies, a wrong instance is rejected and both MAC
+    checks pass with residues in their queues.  On a CPU the semi-honest
+    binary alone took an hour and a half, so this runs on the card only."""
+    import os
+
+    from zkmpc_tpu_torch.cli import main as CLI
+    inputs = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                          "inputs", "inputs-template.json")
+    with pytest.raises(SystemExit) as done:
+        CLI.main(["groth16", inputs, "--slots", "1024", "--backend", "spdz",
+                  "--outdir", str(tmp_path)])
+    assert done.value.code == 0

@@ -58,15 +58,14 @@ def test_gadget_circuit_matches_reference(gadget_cs):
 def test_batched_gadgets_open_like_scalar_ones(gadget_cs):
     """mul_many, matmul_gadget, to_bits_many, is_zero_many and
     less_than_many open to the values of their scalar forms on the same
-    wires, zero and nonzero (x - 3 and y), and to the host ints; the
-    system is satisfied (their matrices are held against the JAX package's
-    in `test_gadget_circuit_matches_reference`)."""
-    cs, out = gadget_cs
+    wires, zero and nonzero (x - 3 and y), and to the host ints (their
+    matrices are held against the JAX package's in
+    `test_gadget_circuit_matches_reference`)."""
+    _, out = gadget_cs
     x, y, k = PF.A_INT, PF.B_INT, PF.C_INT
     with _scope():
         opened = {name: [int(v.value.reveal().to_ints()[0]) for v in wires]
                   for name, wires in out.items()}
-        assert cs.is_satisfied_ints()
     bits = [(x >> i) & 1 for i in range(PF.NBITS)]
     assert opened["mul_many"] == opened["mul"] == [x * y]
     assert opened["matmul"] == [x * y + y * k]
@@ -74,3 +73,10 @@ def test_batched_gadgets_open_like_scalar_ones(gadget_cs):
     assert opened["to_bits_many"][PF.NBITS:] == [(y >> i) & 1 for i in range(PF.NBITS)]
     assert opened["is_zero_many"] == opened["is_zero"] == [1, 0]
     assert opened["less_than_many"] == [int(x < y), int(y < x)]
+
+
+def test_gadget_system_is_satisfied(gadget_cs):
+    """The opened assignment of the whole gadget circuit satisfies its
+    system."""
+    with _scope():
+        assert gadget_cs[0].is_satisfied_ints()

@@ -68,6 +68,24 @@ def test_device_matrix_segments_match_reference():
     np.testing.assert_array_equal(got.seg1.numpy(), ref.seg1)
 
 
+def test_toxic_waste_redraws_degenerate_elements(monkeypatch):
+    """A normal seed gives the JAX package's trapdoor; a stream whose draws
+    are 0, or a tau on the domain's roots of unity, is redrawn from."""
+    from zkmpc_tpu.compat import ark as JA
+    from zkmpc_tpu.snark import groth16 as JG
+    from zkmpc_tpu_torch.compat import ark as TA
+    for seed in (0, 1, 7):
+        assert groth16._toxic_waste(seed, 8) == JG._toxic_waste(seed)
+    rng = TA.seeded_rng(3)
+    real = [TA.fr_rand(rng) for _ in range(5)]
+    assert JA.fr_rand(JA.seeded_rng(3)) == real[0]
+    omega = pow(FR.generator, (FR.p - 1) // 8, FR.p)             # order 8
+    stream = iter([0, real[0], real[1], 0, real[2], real[3], 1, omega, 0, real[4]])
+    monkeypatch.setattr(groth16.A_, "fr_rand", lambda rng: next(stream))
+    assert groth16._toxic_waste(3, 8) == tuple(real)
+    assert next(stream, None) is None
+
+
 def test_proving_key_from_plain_fields():
     """pk_from_host rebuilds the key from the fixture's plain ints."""
     fx = MK.load(np.load(MK.PATH))

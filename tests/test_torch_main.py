@@ -63,11 +63,25 @@ def test_run_config_and_context():
                       DummyTripleSource)
     src = CFG.build_mpc_context(CFG.RunConfig(), t, dealer=_dealer()).triple_source
     assert isinstance(src, PP.SheTripleSource) and src.generator.device == t.device
-    # the SPDZ backend is not ported: it raises, naming the roadmap
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        CFG.build_mpc_context(CFG.RunConfig(backend="spdz"), t, dealer=_dealer())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        CLI.run("groth16", INPUTS, backend="spdz", device="cpu")
+    # the SPDZ backend: the dealer's alpha shares and a MAC-serving source
+    dealer = _dealer()
+    ctx = CFG.build_mpc_context(CFG.RunConfig(backend="spdz"), t, dealer=dealer)
+    assert ctx.backend == "spdz" and isinstance(ctx.triple_source, PP.SheTripleSource)
+    assert ctx.alpha_share.to_ints().tolist() == dealer.alpha_shares.to_ints().tolist()
+    alpha = sum(dealer.alpha_shares.to_ints().tolist()) % P
+    with mpc_scope(ctx):
+        for w in ctx.triple_source.field_triples(FR, (3,)) + \
+                (ctx.triple_source.rand_shares(FR, (2,)),):
+            vals, macs = (np.sum(x.to_ints(), axis=0) for x in (w.value, w.mac))
+            assert [int(m) % P for m in macs] == [alpha * int(v) % P for v in vals]
+        a, b, c = (np.sum(w.value.to_ints(), axis=0) for w in
+                   ctx.triple_source.field_triples(FR, (2,)))
+        assert all(int(x) * int(y) % P == int(z) % P for x, y, z in zip(a, b, c))
+    # under the semi-honest backend the same source serves values alone
+    with mpc_scope(CFG.build_mpc_context(CFG.RunConfig(), t, dealer=dealer)) as semi:
+        assert semi.triple_source.field_triples(FR, (2,))[0].mac is None
+    with pytest.raises(AssertionError, match="initialize"):
+        CFG.build_mpc_context(CFG.RunConfig(backend="spdz"), t)
     with pytest.raises(SystemExit, match="Marlin"):
         CLI.main(["marlin", INPUTS, "--device", "cpu"])
 
@@ -181,8 +195,8 @@ def test_she_triples_feed_the_wide_mul_prove(tmp_path):
 @pytest.mark.parametrize("ciphertexts", [1, 2])
 def test_triple_source_serves_each_slot_once(ciphertexts):
     """Requests take the unused slots of earlier batches first; every slot
-    served is a valid triple and none is served twice; a batch covers
-    ``ciphertexts`` ciphertexts of 8 slots."""
+    served is a valid triple and none is served twice; a triple batch and
+    a batch of <r> shares cover ``ciphertexts`` ciphertexts of 8 slots."""
     src = PP.SheTripleSource(_dealer(), torch.Generator().manual_seed(8), ciphertexts)
     got = [src.field_triples(FR, shape) for shape in ((3,), (2, 2), (), (4,))]
     # 3 + 4 + 1 + 4 = 12 slots: of 16 in two batches, or of 16 in one
@@ -198,10 +212,11 @@ def test_triple_source_serves_each_slot_once(ciphertexts):
             assert int(x) % P not in seen
             seen.add(int(x) % P)
     assert len(seen) == 12
-    if ciphertexts == 1:
-        # random shares from the <r> pair batches
-        r = src.rand_shares(FR, (3,))
-        assert r.shape == (3,) and src.batches["pair"] == 1 and src.served["pair"] == 3
+    # random shares from the <r> batches, of as many ciphertexts
+    r = src.rand_shares(FR, (3,))
+    assert r.shape == (3,) and src.batches["pair"] == 1 and src.served["pair"] == 3
+    src.rand_shares(FR, (8 * ciphertexts - 3,))
+    assert src.batches["pair"] == 1
 
 
 def _port_input_cs(fx):

@@ -8,19 +8,24 @@ Port of ``zkmpc_tpu/cli/main.py`` (the reference's `cargo run --bin main
    batched across ``--slots`` SIMD slots.
 2. ``MySecretInputCircuit`` from the JSON input x (range [3, 7) and a
    Pedersen commitment to x under 16 random bits), synthesized and proved
-   at ``--parties`` parties with Groth16 on the semi-honest backend, every
-   Beaver triple, inverse pair and group triple served from preprocessing
+   at ``--parties`` parties with Groth16, every Beaver triple, inverse
+   pair and group triple served from preprocessing
    (`she.preprocessing.SheTripleSource`); the proof is published as ark's
    192-byte blob, the parsed blob verified and a wrong instance rejected.
+   ``--backend semi`` is the reference's `honest` feature; ``--backend
+   spdz`` its `malicious` one: every field and group share carries MAC
+   shares under the preprocessed key alpha, and after the prove both
+   batched MAC checks must pass, neither of them vacuous.
 3. Per-party ``<outdir>/<i>/online_setup.json`` r-shares in the
    reference's 0x-hex JSON format (`src/serialize.rs:101-147`) and
    ``<outdir>/commitment.json``.
 
 Usage: python -m zkmpc_tpu_torch.cli.main groth16 inputs.json
-       [--parties 3] [--outdir outputs] [--slots 8] [--seed 0] [--device cuda]
+       [--parties 3] [--outdir outputs] [--slots 8] [--seed 0]
+       [--backend semi|spdz] [--device cuda]
 
-It runs on the CUDA card unless ``--device cpu`` is given.  ``marlin`` and
-``--backend spdz`` are not ported yet and exit nonzero.
+It runs on the CUDA card unless ``--device cpu`` is given.  ``marlin`` is
+not ported yet and exits nonzero.
 """
 
 from __future__ import annotations
@@ -36,7 +41,7 @@ import torch
 
 from ..circuits import input_circuit
 from ..compat import ark as ARK
-from ..config import SPDZ_NOT_PORTED, RunConfig, build_mpc_context
+from ..config import RunConfig, build_mpc_context
 from ..crypto import pedersen
 from ..mpc.share import MpcFp, _sum_axis0, king_share, mpc_scope
 from ..ops.limbs import FR, FpArray
@@ -78,13 +83,11 @@ def run(zksnark: str, inputs_path: str, n_parties: int = 3,
     instance is rejected.  ``report``: a dict that receives the phases'
     wall-clock (seconds, to a device synchronize), the circuit's size, the
     preprocessing batches run and slots served during synthesis and prove,
-    and the openings."""
+    the openings and, under SPDZ, the MAC residue counts and check time."""
     if zksnark == "marlin":
         raise SystemExit(MARLIN_NOT_PORTED)
     if zksnark != "groth16":
         raise SystemExit(f"unknown zksnark {zksnark!r}")
-    if backend == "spdz":
-        raise NotImplementedError(SPDZ_NOT_PORTED)
     cfg = RunConfig(n_parties=n_parties, backend=backend, zksnark=zksnark,
                     slots=slots, seed=seed, outdir=outdir)
     dev = torch.device(device)
@@ -161,6 +164,17 @@ def run(zksnark: str, inputs_path: str, n_parties: int = 3,
                    prove_openings=transport.stats.rounds - rounds)
         pints = groth16.proof_to_ints(proof)
         instance = cs.instance_ints()
+        if backend == "spdz":
+            # the batched MAC checks over every value opened in the run,
+            # required non-vacuous: the queues must hold residues
+            rep.update(field_mac_residues=mctx.mac_residue_count,
+                       group_mac_residues=mctx.group_mac_residue_count)
+            t = time.time()
+            mctx.assert_field_macs(require_nonempty=True)
+            mctx.assert_group_macs(require_nonempty=True)
+            lap("mac_check_s", t)
+            print(f"spdz MAC checks passed ({rep['field_mac_residues']} field and "
+                  f"{rep['group_mac_residues']} group openings checked)")
     # publish the proof in ark's `Proof::serialize` format and verify the
     # PARSED blob: the round trip is the interop contract with the
     # reference's serialized proofs
@@ -190,8 +204,7 @@ def _fr(vals, device):
 
 def _scalar(x: MpcFp) -> MpcFp:
     """[1]-shaped wire -> scalar shape ()."""
-    v = x.value
-    return MpcFp(FpArray(v.limbs[..., 0, :], v.spec, v.bound), x.visibility)
+    return x.map(lambda v: FpArray(v.limbs[..., 0, :], v.spec, v.bound))
 
 
 def main(argv=None):
@@ -204,7 +217,7 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--backend", choices=["semi", "spdz"], default="semi",
                     help="security model: semi-honest (the reference's 'honest' "
-                         "feature); spdz is not ported yet")
+                         "feature) or SPDZ with MAC checks ('malicious')")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu for a run without a card)")
     args = ap.parse_args(argv)

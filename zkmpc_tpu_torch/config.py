@@ -3,8 +3,7 @@
 Port of ``zkmpc_tpu/config.py``.  The reference scatters its knobs across
 cargo features (`honest` vs `malicious`, `Cargo.toml:51-54`), CLI flags and
 hardcoded protocol parameters; here they are one JSON round-trippable
-dataclass, and `build_mpc_context` turns it into an `MpcContext`.  Only
-the semi-honest backend is ported: ``backend="spdz"`` raises.
+dataclass, and `build_mpc_context` turns it into an `MpcContext`.
 """
 
 from __future__ import annotations
@@ -13,11 +12,6 @@ import dataclasses
 import json
 
 import torch
-
-SPDZ_NOT_PORTED = ("the SPDZ backend (MACs on field and group shares, the "
-                   "MAC-checked prove) is not ported yet: ROADMAP.md, Queue 1, "
-                   "the SPDZ online backend")
-
 
 @dataclasses.dataclass(frozen=True)
 class ZkPoPKParams:
@@ -60,19 +54,31 @@ class RunConfig:
 
 def build_mpc_context(cfg: RunConfig, transport, dealer=None, generator=None,
                       ciphertexts: int = 1):
-    """The MpcContext of a run: the semi-honest backend, with Beaver triples
-    from a preprocessing dealer's `SheTripleSource` when a dealer is given
-    (drawing from ``generator``, by default one seeded from ``cfg.seed`` on
-    the transport's device; ``ciphertexts`` ciphertexts a triple batch),
-    else the dummy source."""
+    """The MpcContext of a run.
+
+    semi: Beaver triples from a preprocessing dealer's `SheTripleSource`
+    when a dealer is given, else the dummy source.  spdz: needs a dealer
+    after ``initialize`` (the alpha MAC-key shares and the SHE pools); the
+    source serves authenticated triples, inverse pairs and <r> shares, and
+    the field MAC check draws its weights from a generator seeded from the
+    run's seed.  The source draws from ``generator``, by default one seeded
+    from ``cfg.seed`` on the transport's device, ``ciphertexts``
+    ciphertexts a triple batch."""
     from .mpc.share import MpcContext
 
-    if cfg.backend == "spdz":
-        raise NotImplementedError(SPDZ_NOT_PORTED)
-    src = None
-    if dealer is not None:
+    def source():
         from .she.preprocessing import SheTripleSource
-        if generator is None:
-            generator = torch.Generator(transport.device).manual_seed(cfg.seed + 0x517D)
-        src = SheTripleSource(dealer, generator, ciphertexts)
-    return MpcContext(transport, backend="semi", triple_source=src)
+        gen = generator
+        if gen is None:
+            gen = torch.Generator(transport.device).manual_seed(cfg.seed + 0x517D)
+        return SheTripleSource(dealer, gen, ciphertexts)
+
+    if cfg.backend == "semi":
+        return MpcContext(transport, backend="semi",
+                          triple_source=source() if dealer is not None else None)
+    assert dealer is not None and dealer.alpha_shares is not None, \
+        "the spdz backend needs preprocessing (run initialize first)"
+    check = torch.Generator(transport.device).manual_seed(((cfg.seed + 0x517D) << 1) | 1)
+    return MpcContext(transport, backend="spdz", triple_source=source(),
+                      alpha_share=dealer.alpha_shares.to(transport.device),
+                      mac_check_generator=check)

@@ -1,4 +1,4 @@
-"""MPC bitwise protocols over shared field elements (semi-honest backend).
+"""MPC bitwise protocols over shared field elements.
 
 Port of ``zkmpc_tpu/mpc/bits.py``: shared bits are field shares in {0,1};
 AND is a Beaver multiply, everything else is affine.  Every protocol is
@@ -8,7 +8,8 @@ batched Beaver round a level), the form the reference writes for its
 socket transport.
 
 Protocols:
-- ``bit_rand``: uniform shared bits, the XOR of one private bit per party.
+- ``bit_rand``: uniform shared bits, the XOR of one private bit per party;
+  under SPDZ the square-root trick on an authenticated <r> (``bit_rand_sqrt``).
 - ``rand_number_bitwise``: a bitwise-shared uniform value < p, the first
   valid one of ``attempts`` batched candidates, selected obliviously.
 - ``equality_zero``: open c = x + r with bitwise-shared r; AND-tree of the
@@ -18,6 +19,10 @@ Protocols:
   lookahead, and a subtraction of p where the sum wraps.
 - ``is_smaller_or_equal_than_mod_minus_one_div_two`` / ``less_than``: the
   Catrina-de Hoogh LSB method.
+
+Under the SPDZ backend every wire carries its MAC shares through the same
+layout changes (`MpcFp.map`), and the shift fills carry the MAC of the
+value shifted in.
 """
 
 from __future__ import annotations
@@ -27,7 +32,8 @@ import functools
 import torch
 
 from ..ops.limbs import FieldSpec, FpArray, W as LIMB_W
-from .share import PUBLIC, SHARED, MpcFp, _promote_to_shared, _sum_last_axis, ctx
+from .share import (PUBLIC, SHARED, MpcFp, _promote_to_shared, _sum_last_axis, ctx,
+                    rand_shared)
 
 # ---------------------------------------------------------------------------
 # boolean algebra on shared bits (bits are MpcFp in {0,1})
@@ -75,23 +81,27 @@ def kary_or(bits: MpcFp) -> MpcFp:
 # --- views along the bit axis (the last batch axis) -------------------------
 
 
-def _with_limbs(x: MpcFp, limbs, bound=None) -> MpcFp:
-    return MpcFp(FpArray(limbs, x.spec, x.value.bound if bound is None else bound),
-                 x.visibility)
+def _limb_view(x: MpcFp, fn) -> MpcFp:
+    """A view of x along the bit axis by a limb-tensor function, applied to
+    the value and the MAC shares alike (bounds kept)."""
+    return x.map(lambda f: FpArray(fn(f.limbs), f.spec, f.bound))
 
 
 def _slice_last(x: MpcFp, a, b) -> MpcFp:
-    return _with_limbs(x, x.value.limbs[..., a:b, :])
+    return _limb_view(x, lambda l: l[..., a:b, :])
 
 
 def _index_last(x: MpcFp, i) -> MpcFp:
-    return _with_limbs(x, x.value.limbs[..., i, :])
+    return _limb_view(x, lambda l: l[..., i, :])
 
 
 def _expand_last(x: MpcFp, n: int) -> MpcFp:
-    limbs = x.value.limbs
-    return _with_limbs(x, limbs[..., None, :].expand(
-        tuple(limbs.shape[:-1]) + (n, limbs.shape[-1])))
+    return _limb_view(x, lambda l: l[..., None, :].expand(
+        tuple(l.shape[:-1]) + (n, l.shape[-1])))
+
+
+def _cat_fp(a: FpArray, b: FpArray, dim: int) -> FpArray:
+    return FpArray(torch.cat([a.limbs, b.limbs], dim=dim), a.spec, max(a.bound, b.bound))
 
 
 def _concat_last(x: MpcFp, y: MpcFp) -> MpcFp:
@@ -102,42 +112,42 @@ def _concat_last(x: MpcFp, y: MpcFp) -> MpcFp:
             x = _promote_to_shared(x)
         else:
             y = _promote_to_shared(y)
-    return _with_limbs(x, torch.cat([x.value.limbs, y.value.limbs], dim=-2),
-                       max(x.value.bound, y.value.bound))
+    mac = None if x.mac is None else _cat_fp(x.mac, y.mac, -2)
+    return MpcFp(_cat_fp(x.value, y.value, -2), x.visibility, mac)
 
 
 def _shift_by(x: MpcFp, d: int) -> MpcFp:
     """y_i = x_{i-d} along the last axis, filled with public ones (for a
-    shared wire: the leader holds the one)."""
+    shared wire: the leader holds the one, with its MAC shares)."""
     one = MpcFp.const(x.spec, 1)
     if x.is_shared():
         one = _promote_to_shared(one)
-    limbs = x.value.limbs
-    fill = one.value.limbs                                   # [P, nlimbs]
-    fill = fill.reshape(fill.shape[:1] + (1,) * (limbs.dim() - 2) + fill.shape[1:])
-    fill = fill.expand(tuple(limbs.shape[:-2]) + (d, limbs.shape[-1]))
-    return _with_limbs(x, torch.cat([fill, limbs[..., :-d, :]], dim=-2),
-                       max(x.value.bound, one.value.bound))
+
+    def f(fp: FpArray, fill: FpArray) -> FpArray:
+        limbs = fp.limbs
+        fl = fill.limbs                                          # [P, nlimbs]
+        fl = fl.reshape(fl.shape[:1] + (1,) * (limbs.dim() - 2) + fl.shape[1:])
+        fl = fl.expand(tuple(limbs.shape[:-2]) + (d, limbs.shape[-1]))
+        return FpArray(torch.cat([fl, limbs[..., :-d, :]], dim=-2), fp.spec,
+                       max(fp.bound, fill.bound))
+    mac = None if x.mac is None else f(x.mac, one.mac)
+    return MpcFp(f(x.value, one.value), x.visibility, mac)
 
 
 def _shift_by_zero(x: MpcFp, d: int) -> MpcFp:
     """y_i = x_{i-d}, zero-filled at the bottom."""
-    limbs = x.value.limbs
-    return _with_limbs(x, torch.cat([torch.zeros_like(limbs[..., :d, :]),
-                                     limbs[..., :-d, :]], dim=-2))
+    return _limb_view(x, lambda l: torch.cat([torch.zeros_like(l[..., :d, :]),
+                                              l[..., :-d, :]], dim=-2))
 
 
 def _shift_down_zero(x: MpcFp, d: int = 1) -> MpcFp:
     """y_i = x_{i+d}, zero-filled at the top (zeros are plain zeros for both
     public and shared wires)."""
-    limbs = x.value.limbs
-    return _with_limbs(x, torch.cat([limbs[..., d:, :],
-                                     torch.zeros_like(limbs[..., :d, :])], dim=-2))
+    return _limb_view(x, lambda l: torch.cat([l[..., d:, :],
+                                              torch.zeros_like(l[..., :d, :])], dim=-2))
 
 
-def _tree_sum_axis(x: MpcFp) -> MpcFp:
-    """Sum over the second-to-last batch axis (pairwise folds)."""
-    fp = x.value
+def _tree_sum_fp(fp: FpArray) -> FpArray:
     while fp.limbs.shape[-3] > 1:
         n = fp.limbs.shape[-3]
         half = n // 2
@@ -147,11 +157,16 @@ def _tree_sum_axis(x: MpcFp) -> MpcFp:
             folded = FpArray(torch.cat([folded.limbs, fp.limbs[..., 2 * half:, :, :]],
                                        dim=-3), fp.spec, max(folded.bound, fp.bound))
         fp = folded
-    return MpcFp(FpArray(fp.limbs[..., 0, :, :], fp.spec, fp.bound), x.visibility)
+    return FpArray(fp.limbs[..., 0, :, :], fp.spec, fp.bound)
+
+
+def _tree_sum_axis(x: MpcFp) -> MpcFp:
+    """Sum over the second-to-last batch axis (pairwise folds)."""
+    return x.map(_tree_sum_fp)
 
 
 def _sum_last(x: MpcFp) -> MpcFp:
-    return MpcFp(_sum_last_axis(x.value), x.visibility)
+    return x.map(_sum_last_axis)
 
 
 def _bits_to_field(bits: MpcFp) -> MpcFp:
@@ -194,8 +209,17 @@ def bit_rand(generator, spec: FieldSpec, shape=(), raw=None) -> MpcFp:
     tree of Beaver products combines them, so the result is uniform as long
     as one party is honest.  ``raw``: optional injected bool tensor
     [P, *shape] of the parties' bits in place of the generator's draws (the
-    reference draws party i's bits from ``fold_in(key, i)``)."""
-    t = ctx().transport
+    reference draws party i's bits from ``fold_in(key, i)``).
+
+    Under SPDZ the bits must be authenticated: they come from the <r> pool
+    through the square-root trick (`bit_rand_sqrt`), every step of which
+    keeps the MACs."""
+    c = ctx()
+    if c.backend == "spdz":
+        if raw is not None:
+            raise ValueError("spdz bits come from the <r> pool, not injected draws")
+        return bit_rand_sqrt(generator, spec, shape)
+    t = c.transport
     P_ = t.n_parties
     shape = tuple(shape)
     if raw is None:
@@ -216,6 +240,53 @@ def bit_rand(generator, spec: FieldSpec, shape=(), raw=None) -> MpcFp:
             nxt.append(contribs[-1])
         contribs = nxt
     return contribs[0]
+
+
+def sqrt_public(x: FpArray) -> FpArray:
+    """Batched square root of public quadratic residues (undefined output
+    for non-residues; 0 -> 0): constant-structure Tonelli-Shanks, the
+    s - 1 rounds (s = the field's 2-adicity, 47 for BLS12-377 Fr) as a
+    plain loop, each squaring t up to 2^i.  The select of a round compares
+    canonical values."""
+    spec = x.spec
+    p = spec.p
+    s = spec.two_adicity
+    q = (p - 1) >> s
+    z = pow(spec.generator % p, q, p)                 # an element of order 2^s
+
+    def n2(f: FpArray) -> FpArray:
+        f = f.tighten()
+        return f if f.bound == 2 else FpArray(f.limbs, spec, 2)
+
+    c = n2(FpArray.from_int(spec, z, device=x.device).broadcast_to(x.shape))
+    t = n2(x.pow_const(q))
+    r = n2(x.pow_const((q + 1) // 2))
+    one = FpArray.ones(spec, x.shape, x.device)
+    for i in range(s - 2, -1, -1):
+        d = t
+        for _ in range(i):
+            d = n2(d.square())
+        flag = ~d.equals(one) & ~t.equals(one)
+        r2 = FpArray.select(flag, r * c, r)
+        c = n2(c.square())
+        t2 = FpArray.select(flag, t * c, t)
+        r, t = n2(r2), n2(t2)
+    return r
+
+
+def bit_rand_sqrt(generator, spec: FieldSpec, shape=()) -> MpcFp:
+    """The reference's square-root-trick bits (`boolean_field.rs:150-170`):
+    a shared r, open r^2, b = (r / sqrt(r^2) + 1) / 2.  Every step keeps
+    the MACs: r is authenticated, one Beaver square, one opening, then
+    public scales and shifts."""
+    r = rand_shared(generator, spec, shape)
+    r2 = (r * r).reveal()
+    # r = 0 (negligible) would leave sqrt and inverse undefined: use 1
+    safe = FpArray.select(r2.is_zero(), FpArray.ones(spec, r2.shape, r2.device), r2)
+    vinv = sqrt_public(safe).inv()
+    pm1 = r * MpcFp(vinv, PUBLIC)                     # in {-1, +1}
+    half = MpcFp.const(spec, pow(2, -1, spec.p))
+    return (pm1 + MpcFp.const(spec, 1)) * half
 
 
 def rand_number_bitwise(generator, spec: FieldSpec, shape=(), attempts: int = 16,

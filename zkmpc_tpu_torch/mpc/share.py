@@ -1,11 +1,14 @@
-"""Secret-shared field tensors: the MPC wire layer (semi-honest backend).
+"""Secret-shared field tensors: the MPC wire layer.
 
-Port of the semi-honest half of ``zkmpc_tpu/mpc/share.py``.  A whole tensor
-is either public (replicated across parties) or shared (each party holds an
-additive share); visibility is static metadata.  Communication goes through
-the ambient `parallel.transport` (psum = share opening).  Semantics kept
-from the reference: public constants are added by the leader only; a
-shared-by-shared product is a batched Beaver multiplication.
+Port of ``zkmpc_tpu/mpc/share.py``.  A whole tensor is either public
+(replicated across parties) or shared (each party holds an additive share);
+visibility is static metadata.  Communication goes through the ambient
+`parallel.transport` (psum = share opening).  Semantics kept from the
+reference: public constants are added by the leader only; a shared-by-shared
+product is a batched Beaver multiplication; under the SPDZ backend every
+shared wire carries a MAC share (sum_i mac_i = alpha * value) that linear
+ops maintain, and every opening queues its residue mac_i - alpha_i * opened
+for a batched check that must be drained and verified.
 """
 
 from __future__ import annotations
@@ -26,15 +29,138 @@ SHARED = "shared"
 
 
 class MpcContext:
-    """Ambient MPC execution state: transport, backend and triple source."""
+    """Ambient MPC execution state: transport, backend, triple source and,
+    under ``backend="spdz"``, the MAC key share and the MAC-check queues.
+
+    ``alpha_share``: FpArray [P], each party's share of the MAC key.  The
+    field check weighs each opening's residues by random rho drawn from
+    ``mac_check_generator`` (none: weight 1); ``rho_bits``: optional
+    injected raw draws, one (hi, lo) pair per opening in order (see
+    `rand.uniform_fp`), in place of the generator's."""
 
     def __init__(self, transport: T.Transport, backend: str = "semi",
-                 triple_source=None):
-        if backend != "semi":
-            raise NotImplementedError("only the semi-honest backend is ported")
+                 triple_source=None, alpha_share: FpArray | None = None,
+                 mac_check_generator=None, rho_bits=None):
+        if backend not in ("semi", "spdz"):
+            raise ValueError(f"unknown MPC backend {backend!r}")
+        if backend == "spdz" and alpha_share is None:
+            raise ValueError("the spdz backend needs the MAC key shares")
         self.transport = transport
         self.backend = backend
         self.triple_source = triple_source or DummyTripleSource()
+        self.alpha_share = alpha_share
+        self.mac_check_generator = mac_check_generator
+        self.rho_bits = rho_bits
+        self._mac_accum = None       # random linear combination of residues
+        self._mac_count = 0
+        # group residues, one queue per group (G1 and G2 do not add): the
+        # folded MAC shares and the folded opened points, alpha applied once
+        # when the queue is checked (sum_j (mac_j - alpha_i P_j) =
+        # sum_j mac_j - alpha_i sum_j P_j)
+        self._group_accum = {}
+        self._group_count = 0
+
+    def alpha_for(self, batch_ndim: int) -> FpArray:
+        """The alpha share [P] reshaped to broadcast against party-shaped
+        tensors with ``batch_ndim`` batch axes."""
+        a = self.alpha_share
+        limbs = a.limbs.reshape(a.limbs.shape[:1] + (1,) * batch_ndim + a.limbs.shape[-1:])
+        return FpArray(limbs, a.spec, a.bound)
+
+    # -- field MAC check (SPDZ batched check) --
+
+    def accumulate_mac_residue(self, residue: FpArray):
+        """residue: party-shaped [P, batch...] shares that must open to 0."""
+        batch = residue.shape[1:]
+        flat = residue.reshape(residue.shape[:1] + ((-1,) if batch else (1,)))
+        if self.rho_bits is not None or self.mac_check_generator is not None:
+            bits = None if self.rho_bits is None else self.rho_bits[self._mac_count]
+            rho = R.uniform_fp(self.mac_check_generator, flat.spec, flat.shape[1:],
+                               device=flat.device, bits=bits)
+            flat = flat * rho
+        s = _sum_last_axis(flat)
+        self._mac_accum = s if self._mac_accum is None else self._mac_accum + s
+        self._mac_count += 1
+
+    @property
+    def mac_residue_count(self) -> int:
+        """How many field openings contributed MAC residues."""
+        return self._mac_count
+
+    def drain_mac_check(self):
+        """The accumulated field residue share (must open to zero)."""
+        acc = self._mac_accum
+        self._mac_accum = None
+        return acc
+
+    def assert_field_macs(self, require_nonempty: bool = False):
+        """Open the accumulated field residue; it must be zero.  With
+        ``require_nonempty`` the check also fails if no authenticated share
+        was ever opened."""
+        if require_nonempty and self._mac_count == 0:
+            raise AssertionError("SPDZ field MAC queue is empty")
+        acc = self.drain_mac_check()
+        if acc is None:
+            return True
+        if not bool(_open(self.transport, acc).is_zero().all()):
+            raise AssertionError("SPDZ field MAC check failed")
+        return True
+
+    # -- group MAC check (SPDZ over curve points) --
+
+    def accumulate_group_mac_residue(self, mac, opened):
+        """mac: a party-shaped SWPoint of MAC shares; opened: the opened
+        point, party-shaped (replicated).  Each is folded to one point per
+        party with complete adds and queued by group.  Every opening has
+        weight 1, as in the reference: unlike the field check's rho, this
+        lets errors that cancel across openings through (ROADMAP Queue 3)."""
+        from ..ops.curve import sw_add_complete
+        from ..ops.msm import _sw_reduce_last
+        key = type(opened.x).__name__
+        folded = tuple(_sw_reduce_last(p.reshape((p.shape[0], -1))) for p in (mac, opened))
+        prev = self._group_accum.get(key)
+        self._group_accum[key] = folded if prev is None else tuple(
+            sw_add_complete(a, b) for a, b in zip(prev, folded))
+        self._group_count += 1
+
+    @property
+    def group_mac_residue_count(self) -> int:
+        """How many opened group shares contributed MAC residues (a check
+        that must not be vacuous asserts this is nonzero)."""
+        return self._group_count
+
+    def drain_group_mac_check(self) -> list:
+        """The accumulated group residue shares, one party-shaped point per
+        group: sum mac_i - alpha_i * sum opened (each must open to
+        infinity)."""
+        from ..ops.curve import sw_add_complete, sw_neg, sw_scalar_mul
+        out = []
+        for mac, opened in self._group_accum.values():
+            out.append(sw_add_complete(mac, sw_neg(sw_scalar_mul(opened, self.alpha_for(0)))))
+        self._group_accum = {}
+        self._group_count = 0
+        return out
+
+    def assert_group_macs(self, require_nonempty: bool = False):
+        """Open the accumulated group residues; each must be the point at
+        infinity.  With ``require_nonempty`` the check fails if no
+        authenticated group share was ever opened."""
+        from .group import MpcSWPoint
+        if require_nonempty and self._group_count == 0:
+            raise AssertionError("SPDZ group MAC queue is empty: no authenticated "
+                                 "group share was ever opened")
+        for acc in self.drain_group_mac_check():
+            if not bool(MpcSWPoint(acc, SHARED).reveal().inf.all()):
+                raise AssertionError("SPDZ group MAC check failed")
+        return True
+
+
+def _open(t: T.Transport, x: FpArray) -> FpArray:
+    """Sum party shares [P, ...] to the opened value, replicated [P, ...]."""
+    x = x.tighten()
+    opened = t.psum(x.limbs)
+    return FpArray(_resolve2(opened)[..., :x.spec.nlimbs], x.spec,
+                   2 * t.n_parties).tighten()
 
 
 _CTX: contextvars.ContextVar = contextvars.ContextVar("zkmpc_torch_mpc_ctx",
@@ -46,6 +172,12 @@ def ctx() -> MpcContext:
     if c is None:
         raise RuntimeError("no MPC context; use `with mpc_scope(ctx):`")
     return c
+
+
+def spdz_in_scope() -> bool:
+    """Whether an MPC context on the SPDZ backend is in scope."""
+    c = _CTX.get()
+    return c is not None and c.backend == "spdz"
 
 
 @contextlib.contextmanager
@@ -74,18 +206,39 @@ def _sum_last_axis(x: FpArray) -> FpArray:
     return FpArray(x.limbs[..., 0, :], x.spec, x.bound)
 
 
+def check_eq(x) -> bool:
+    """Debug check that every party holds the same bits of a supposedly
+    public value (a public MpcFp, or an FpArray in party layout); returns
+    True or raises."""
+    arr = x
+    if isinstance(x, MpcFp):
+        assert x.visibility == PUBLIC, "check_eq is for public values"
+        arr = x.value
+    if not bool((arr.limbs == arr.limbs[:1]).all()):
+        raise AssertionError("check_eq: parties disagree on a public value")
+    return True
+
+
+def _rebroadcast(t: T.Transport, limbs):
+    """A [...]-shaped public tensor -> the party-shaped layout [P, ...]."""
+    return limbs[None].expand((t.n_parties,) + tuple(limbs.shape))
+
+
 def party_shape(t: T.Transport, batch_shape):
     return (t.n_parties,) + tuple(batch_shape)
 
 
 class MpcFp:
-    """Field tensor with visibility; value layout [P, batch...]."""
+    """Field tensor with visibility; value layout [P, batch...].  Under the
+    SPDZ backend a shared wire also carries ``mac``, its MAC shares in the
+    same layout."""
 
-    __slots__ = ("value", "visibility")
+    __slots__ = ("value", "visibility", "mac")
 
-    def __init__(self, value: FpArray, visibility: str):
+    def __init__(self, value: FpArray, visibility: str, mac: FpArray | None = None):
         self.value = value
         self.visibility = visibility
+        self.mac = mac
 
     @property
     def spec(self):
@@ -102,6 +255,12 @@ class MpcFp:
     def __repr__(self):
         return f"MpcFp({self.visibility}, {self.value!r})"
 
+    def map(self, fn) -> "MpcFp":
+        """Apply ``fn`` (FpArray -> FpArray, a layout change) to the value
+        and, if present, the MAC shares."""
+        return MpcFp(fn(self.value), self.visibility,
+                     None if self.mac is None else fn(self.mac))
+
     # --------------------------------------------------------------- creation
 
     @classmethod
@@ -117,17 +276,26 @@ class MpcFp:
         return cls.from_public(FpArray.from_int(
             spec, np.asarray(ints, dtype=object), device=T.current().device))
 
+    @classmethod
+    def from_shares(cls, share_value: FpArray, mac: FpArray | None = None):
+        """Wrap raw additive shares (party-shaped), with their MAC shares
+        under the SPDZ backend."""
+        if ctx().backend == "spdz" and mac is None:
+            raise ValueError("a spdz wire requires its MAC shares")
+        return cls(share_value, SHARED, mac)
+
     # --------------------------------------------------------------- openings
 
     def reveal(self) -> FpArray:
-        """Open to a public plain FpArray (party-shaped, replicated)."""
-        t = ctx().transport
+        """Open to a public plain FpArray (party-shaped, replicated).  Under
+        SPDZ the residue mac_i - alpha_i * opened joins the field check."""
+        c = ctx()
         if self.visibility == PUBLIC:
             return self.value
-        x = self.value.tighten()
-        opened = t.psum(x.limbs)
-        return FpArray(_resolve2(opened)[..., :x.spec.nlimbs], x.spec,
-                       2 * t.n_parties).tighten()
+        opened = _open(c.transport, self.value)
+        if c.backend == "spdz":
+            c.accumulate_mac_residue(self.mac - opened * c.alpha_for(opened.ndim - 1))
+        return opened
 
     def open(self) -> "MpcFp":
         return MpcFp(self.reveal(), PUBLIC)
@@ -147,10 +315,12 @@ class MpcFp:
         def fix(w: MpcFp, r):
             if r >= rank:
                 return w
-            shp = w.value.limbs.shape
-            new = shp[:1] + (1,) * (rank - r) + shp[1:]
-            return MpcFp(FpArray(w.value.limbs.reshape(new), w.spec,
-                                 w.value.bound), w.visibility)
+
+            def rs(f: FpArray):
+                shp = f.limbs.shape
+                return FpArray(f.limbs.reshape(shp[:1] + (1,) * (rank - r) + shp[1:]),
+                               f.spec, f.bound)
+            return w.map(rs)
         return fix(self, ra), fix(other, rb)
 
     def __add__(self, other):
@@ -161,15 +331,21 @@ class MpcFp:
         if a.visibility == PUBLIC:
             a, b = b, a
         if b.visibility == PUBLIC:
-            # the leader adds the public constant to its share
+            # the leader adds the public constant to its share; every party
+            # adds alpha_i * constant to its MAC share
             mask = a._leader_mask()
             summed = a.value + b.value
             shifted = FpArray.select(mask.expand(summed.shape), summed, a.value)
-            return MpcFp(shifted, SHARED)
-        return MpcFp(a.value + b.value, SHARED)
+            mac = None
+            if a.mac is not None:
+                mac = a.mac + b.value * ctx().alpha_for(b.value.ndim - 1)
+            return MpcFp(shifted, SHARED, mac)
+        mac = None if a.mac is None else a.mac + b.mac
+        return MpcFp(a.value + b.value, SHARED, mac)
 
     def __neg__(self):
-        return MpcFp(-self.value, self.visibility)
+        return MpcFp(-self.value, self.visibility,
+                     None if self.mac is None else -self.mac)
 
     def __sub__(self, other):
         other = _coerce(other, self.spec)
@@ -183,14 +359,16 @@ class MpcFp:
         if a.visibility == PUBLIC:
             a, b = b, a
         if b.visibility == PUBLIC:      # scale: local
-            return MpcFp(a.value * b.value, SHARED)
+            mac = None if a.mac is None else a.mac * b.value
+            return MpcFp(a.value * b.value, SHARED, mac)
         return beaver_mul(a, b)
 
     def square(self):
         return self * self
 
     def smul(self, k: int):
-        return MpcFp(self.value.smul(k), self.visibility)
+        return MpcFp(self.value.smul(k), self.visibility,
+                     None if self.mac is None else self.mac.smul(k))
 
     def double(self):
         return self.smul(2)
@@ -200,20 +378,23 @@ class MpcFp:
     def reshape(self, *shape):
         if len(shape) == 1 and isinstance(shape[0], (tuple, list)):
             shape = tuple(shape[0])
-        return MpcFp(self.value.reshape((self.value.shape[0],) + shape),
-                     self.visibility)
+        full = (self.value.shape[0],) + shape
+        return self.map(lambda f: f.reshape(full))
 
     def __getitem__(self, idx):
         """Index into the batch (party axis is preserved)."""
         if not isinstance(idx, tuple):
             idx = (idx,)
-        return MpcFp(self.value[(slice(None),) + idx], self.visibility)
+        return self.map(lambda f: f[(slice(None),) + idx])
 
     @staticmethod
     def concat(xs, axis=0):
         vis = SHARED if any(x.is_shared() for x in xs) else PUBLIC
         xs = [x if x.visibility == vis else _promote_to_shared(x) for x in xs]
-        return MpcFp(FpArray.concat([x.value for x in xs], axis + 1), vis)
+        mac = None
+        if xs[0].mac is not None:
+            mac = FpArray.concat([x.mac for x in xs], axis + 1)
+        return MpcFp(FpArray.concat([x.value for x in xs], axis + 1), vis, mac)
 
 
 def _coerce(x, spec):
@@ -227,11 +408,16 @@ def _coerce(x, spec):
 
 
 def _promote_to_shared(x: MpcFp) -> MpcFp:
-    """Public -> trivial sharing (leader holds the value, others hold 0)."""
+    """Public -> trivial sharing (leader holds the value, others hold 0);
+    under SPDZ each party's MAC share is alpha_i * value."""
     assert x.visibility == PUBLIC
+    c = ctx()
     mask = x._leader_mask().expand(x.value.shape)
     zeros = FpArray.zeros(x.spec, x.value.shape, x.value.device)
-    return MpcFp(FpArray.select(mask, x.value, zeros), SHARED)
+    mac = None
+    if c.backend == "spdz":
+        mac = x.value * c.alpha_for(x.value.ndim - 1)
+    return MpcFp(FpArray.select(mask, x.value, zeros), SHARED, mac)
 
 
 # ---------------------------------------------------------------------------
@@ -239,27 +425,50 @@ def _promote_to_shared(x: MpcFp) -> MpcFp:
 # ---------------------------------------------------------------------------
 
 
-class DummyTripleSource:
+class TripleSource:
+    """Provider of multiplication triples, inverse pairs and random shares
+    (reference `mpc-algebra/src/share.rs:17-42`)."""
+
+    def field_triples(self, spec: FieldSpec, shape):
+        raise NotImplementedError
+
+    def inv_pairs(self, spec: FieldSpec, shape):
+        raise NotImplementedError
+
+    def rand_shares(self, spec: FieldSpec, shape):
+        """Authenticated random shared values (SPDZ <r> pairs,
+        `preprocessing.rs:823-878`)."""
+        raise NotImplementedError
+
+
+class DummyTripleSource(TripleSource):
     """INSECURE constant (1,1,1) triples, mirroring the reference's
-    ``DummyFieldTripleSource``: correct results, no privacy."""
+    ``DummyFieldTripleSource``: correct results, no privacy.  ``generator``:
+    the torch.Generator of `rand_shares`' dealt values (default: seed 0 on
+    the transport's device)."""
+
+    def __init__(self, generator=None):
+        self.generator = generator
 
     def field_triples(self, spec, shape):
         one = _promote_to_shared(MpcFp.const(spec, 1))
         t = T.current()
-        full = party_shape(t, shape)
-        limbs = one.value.limbs.reshape((t.n_parties,) + (1,) * len(shape) +
-                                        (spec.nlimbs,))
-        a = MpcFp(FpArray(limbs.expand(full + (spec.nlimbs,)), spec,
-                          one.value.bound), SHARED)
+        full = party_shape(t, shape) + (spec.nlimbs,)
+
+        def bcast(f: FpArray):
+            limbs = f.limbs.reshape((t.n_parties,) + (1,) * len(shape) + (spec.nlimbs,))
+            return FpArray(limbs.expand(full), spec, f.bound)
+        a = one.map(bcast)
         return a, a, a
 
     def group_triples(self, P, scalar_spec):
         """Group triple (a, B, C = a*B) with a = 1 and B = the group
-        generator held by the leader; batch shape matches P."""
+        generator held by the leader; batch shape matches P.  Under SPDZ
+        every party's MAC share of B is alpha_i * G."""
         from ..ops.curve import SWPoint
         from ..ops.fp2 import Fp2Array
         from ..ops.msm import _bcast_sw
-        from .group import MpcSWPoint
+        from .group import MpcSWPoint, _alpha_scale
 
         t = T.current()
         a, _, _ = self.field_triples(scalar_spec, P.shape)
@@ -269,14 +478,25 @@ class DummyTripleSource:
             gen = SWPoint.g1_from_affine_ints([SC.G1_GEN], t.device)
         gen = _bcast_sw(gen[0], P.point.shape)
         mask = (t.party_index(len(P.shape)) == 0).expand(P.point.shape)
+        mac = _alpha_scale(gen) if ctx().backend == "spdz" else None
         Bp = MpcSWPoint(SWPoint.select(mask, gen, SWPoint.infinity_like(gen)),
-                        SHARED)
+                        SHARED, mac)
         return a, Bp, Bp
 
     def inv_pairs(self, spec, shape):
         """Inverse pairs (r, r^-1) with r = 1, the constant triple's a."""
         a, _, _ = self.field_triples(spec, shape)
         return a, a
+
+    def rand_shares(self, spec, shape):
+        """INSECURE <r> shares: a value drawn from the source's generator
+        and dealt by the leader with MACs, so every party learns it (the
+        reference's test-only `can_cheat` escape hatch)."""
+        t = T.current()
+        if self.generator is None:
+            self.generator = torch.Generator(t.device).manual_seed(0)
+        v = R.uniform_fp(self.generator, spec, tuple(shape), device=t.device)
+        return king_share(v, self.generator)
 
 
 def beaver_mul(x: MpcFp, y: MpcFp) -> MpcFp:
@@ -307,10 +527,17 @@ def beaver_div(x: MpcFp, y: MpcFp) -> MpcFp:
 
 
 def rand_shared(generator, spec: FieldSpec, shape=(), shares=None) -> MpcFp:
-    """Fresh random shared value: each party holds an independent uniform
-    share.  ``shares``: optional injected share tensor (FpArray [P, *shape])
-    in place of the draw."""
-    t = ctx().transport
+    """Fresh random shared value.  Semi-honest: each party holds an
+    independent uniform share; ``shares``: optional injected share tensor
+    (FpArray [P, *shape]) in place of the draw.  SPDZ: the value must carry
+    MACs, so it comes from the triple source's <r> pool (a source without
+    one raises)."""
+    c = ctx()
+    t = c.transport
+    if c.backend == "spdz":
+        if shares is not None:
+            raise ValueError("spdz random shares come from the triple source")
+        return c.triple_source.rand_shares(spec, shape)
     if shares is not None:
         assert shares.shape == party_shape(t, shape), shares.shape
         return MpcFp(shares.to(t.device), SHARED)
@@ -323,18 +550,26 @@ def king_share(value: FpArray, generator, shares=None) -> MpcFp:
     1..P-1 hold uniform draws, the leader value minus their sum.  As in the
     reference, one draw of [P, *shape] is made and row 0 is not used (the
     draws stand for a replicated key's outputs, so this is a test-net
-    dealer, not private input sharing).  ``shares``: optional injected
-    draws (FpArray [P, *shape]) in place of the generator's."""
-    t = ctx().transport
+    dealer, not private input sharing); under SPDZ every party knows the
+    value, so each forms its MAC share alpha_i * value.  ``shares``:
+    optional injected draws (FpArray [P, *shape]) in place of the
+    generator's."""
+    c = ctx()
+    t = c.transport
     spec = value.spec
     batch = tuple(value.shape)
     if shares is None:
         shares = R.uniform_fp(generator, spec, party_shape(t, batch), device=t.device)
     assert shares.shape == party_shape(t, batch), shares.shape
     shares = shares.to(t.device)
-    leader = value.to(t.device) - _sum_axis0(shares[1:])
+    value = value.to(t.device)
+    leader = value - _sum_axis0(shares[1:])
     sh = FpArray.concat([leader.reshape((1,) + batch), shares[1:]], axis=0)
-    return MpcFp(sh, SHARED)
+    mac = None
+    if c.backend == "spdz":
+        vparty = FpArray(_rebroadcast(t, value.limbs), spec, value.bound)
+        mac = vparty * c.alpha_for(len(batch))
+    return MpcFp(sh, SHARED, mac)
 
 
 def _sum_axis0(x: FpArray) -> FpArray:

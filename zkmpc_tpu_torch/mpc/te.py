@@ -81,10 +81,13 @@ class MpcTEPoint:
 def _bcast(w: MpcFp, shape):
     if not shape:
         return w
-    limbs = w.value.limbs
-    src = limbs.reshape(tuple(limbs.shape[:-1]) + (1,) * len(shape) + (limbs.shape[-1],))
-    tgt = tuple(limbs.shape[:-1]) + tuple(shape) + (limbs.shape[-1],)
-    return MpcFp(FpArray(src.expand(tgt), w.spec, w.value.bound), w.visibility)
+
+    def f(fp: FpArray) -> FpArray:
+        limbs = fp.limbs
+        src = limbs.reshape(tuple(limbs.shape[:-1]) + (1,) * len(shape) + (limbs.shape[-1],))
+        tgt = tuple(limbs.shape[:-1]) + tuple(shape) + (limbs.shape[-1],)
+        return FpArray(src.expand(tgt), fp.spec, fp.bound)
+    return w.map(f)
 
 
 def select_base(bit: MpcFp, base_xy) -> MpcTEPoint:

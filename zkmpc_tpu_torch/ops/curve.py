@@ -234,22 +234,62 @@ def _bcast_sw(points: SWPoint, shape) -> SWPoint:
 
 def sw_scalar_mul(points: SWPoint, scalars: FpArray, nbits: int | None = None
                   ) -> SWPoint:
-    """Batched double-and-add: out_i = scalars_i * points_i, the points
-    broadcasting against the scalars' batch shape (a point that several
-    lanes share, such as an MSM base under every party's shares, is doubled
-    once).
+    """Batched fixed-window ladder: out_i = scalars_i * points_i, the points
+    broadcasting against the scalars' batch shape (the table of a point
+    that several lanes share, such as an MSM base under every party's
+    shares, is built once).
 
-    All ladder steps below the top bit avoid SW exceptional cases
-    (acc = (s mod 2^b)*P and base = 2^b*P collide only at b = nbits-1); the
-    top step uses `sw_add_complete`."""
+    Windows of w = 4 bits from the top (Horner): acc = 2^w acc + T[digit],
+    T[d] = d*P (a table of 16 points, then 4 doublings and one add a
+    window).  The scalar bits are those of a canonical value below the
+    group order, so every partial acc = m*P has m below the order and
+    2^w m + d never wraps: acc and T[digit] are never equal or negatives
+    unless one is infinity, which `sw_add_unsafe` takes.  The last add
+    still goes through `sw_add_complete`."""
     nbits = nbits or scalars.spec.p.bit_length()
-    bits = scalar_bits(scalars, nbits) > 0          # [..., nbits]
+    w = 4
+    ndig = -(-nbits // w)
+    bits = scalar_bits(scalars, nbits)                  # [..., nbits]
+    bits = torch.nn.functional.pad(bits, (0, ndig * w - nbits))
+    weights = 1 << torch.arange(w, device=bits.device, dtype=bits.dtype)
+    digits = (bits.reshape(tuple(bits.shape[:-1]) + (ndig, w)) * weights).sum(dim=-1)
     base = _point_bound2(points.tighten())
-    shape = torch.broadcast_shapes(tuple(points.shape), tuple(scalars.shape))
-    acc = _point_bound2(SWPoint.infinity_like(_bcast_sw(base, shape)))
-    for b in range(nbits - 1):
-        added = sw_add_unsafe(acc, base)
-        acc = SWPoint.select(bits[..., b], added, acc)
-        base = sw_double(base)
-    added = sw_add_complete(acc, base)
-    return SWPoint.select(bits[..., nbits - 1], added, acc)
+    table = [SWPoint.infinity_like(base), base, sw_double(base)]
+    while len(table) < 1 << w:
+        table.append(sw_add_unsafe(table[-1], base))
+    table = _stack_points([_point_bound2(t) for t in table])   # [2^w, *pshape]
+    shape = tuple(torch.broadcast_shapes(tuple(points.shape), tuple(scalars.shape)))
+    acc = None
+    for j in range(ndig - 1, -1, -1):
+        term = _gather_points(table, digits[..., j].expand(shape), shape)
+        if acc is None:
+            acc = term
+            continue
+        for _ in range(w):
+            acc = sw_double(acc)
+        acc = sw_add_unsafe(acc, term) if j else sw_add_complete(acc, term)
+    return acc
+
+
+def _stack_points(points) -> SWPoint:
+    """Stack same-shaped point batches along a new leading axis."""
+    def coord(name):
+        fs = [getattr(p, name) for p in points]
+        return type(fs[0]).stack(fs, axis=0)
+    return SWPoint(coord("x"), coord("y"), coord("z"),
+                   torch.stack([p.inf for p in points], dim=0))
+
+
+def _gather_points(table: SWPoint, idx, shape) -> SWPoint:
+    """table [k, *pshape] -> the entries idx [*shape] picks (pshape
+    broadcasting against shape)."""
+    pad = len(shape) - (len(table.shape) - 1)
+
+    def pick(leaf, limbs):
+        tail = tuple(leaf.shape[-1:]) if limbs else ()
+        core = tuple(leaf.shape[1:len(leaf.shape) - len(tail)])
+        src = leaf.reshape((leaf.shape[0],) + (1,) * pad + core + tail)
+        src = src.expand((leaf.shape[0],) + tuple(shape) + tail)
+        ix = idx.reshape((1,) + tuple(shape) + (1,) * len(tail)).expand((1,) + tuple(shape) + tail)
+        return torch.gather(src, 0, ix)[0]
+    return table.map(lambda leaf: pick(leaf, True), lambda leaf: pick(leaf, False))

@@ -488,6 +488,11 @@ class FpArray:
     def is_zero(self):
         return (self.canon_limbs() == 0).all(dim=-1)
 
+    def equals(self, other):
+        """Elementwise equality of the values (canonical limbs compared)."""
+        other = self._coerce(other)
+        return (self.canon_limbs() == other.canon_limbs()).all(dim=-1)
+
     # ------------------------------------------------------------------ misc
 
     def _coerce(self, other):

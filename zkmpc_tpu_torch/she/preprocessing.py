@@ -17,8 +17,9 @@ count, batched: one call makes whole tensors of triples.
   multiplication triples (`:823-974`).
 - ``zkpopk_prove`` / ``zkpopk_verify``: proof of plaintext knowledge
   (DPSZ11 Fig. 10) with a blake2b Fiat-Shamir hash over the canonical limbs.
-- ``SheTripleSource``: the triple source of the semi-honest MPC context,
-  served from `triple` batches.
+- ``SheTripleSource``: the triple source of the MPC context, served from
+  `triple`, `inv_pair` and `pair` batches, with their MAC shares under the
+  SPDZ backend.
 
 Random draws come from an explicit ``torch.Generator``; the masks f of
 `reshare` and the ZKPoPK's y and s can be injected.  Every tensor lives on
@@ -35,7 +36,7 @@ import numpy as np
 import torch
 
 from ..mpc import rand as R
-from ..mpc.share import SHARED, MpcFp
+from ..mpc.share import SHARED, MpcFp, spdz_in_scope
 from ..ops.limbs import FR, MNT4Q, FpArray, int_to_limbs
 from . import bgv, ring
 
@@ -251,11 +252,29 @@ def initialize(ctx: DealerContext, generator):
 def pair(ctx: DealerContext, generator):
     """Random r in both representations (`preprocessing.rs:823-878`):
     ((r_shares, r_mac_shares), (r_shares, r_bracket_macs))."""
-    r_i = R.uniform_fp(generator, FR, (ctx.n_parties, ctx.params.n), device=ctx.device)
-    e_r = _ct_sum_parties(_encrypt_party_slots(ctx, r_i, generator))
-    _, macs = angle(ctx, r_i, e_r, generator)
+    r_i, e_r, macs = _random_angle(ctx, generator, (ctx.n_parties, ctx.params.n))
     br = bracket(ctx, r_i, e_r, generator) if ctx.e_beta is not None else None
     return (r_i, macs), br
+
+
+def _random_angle(ctx: DealerContext, generator, shape):
+    """Random shares r_i of ``shape`` [..., P, n], Enc(r) and <r>'s MAC
+    shares: `pair`'s first representation."""
+    r_i = R.uniform_fp(generator, FR, shape, device=ctx.device)
+    e_r = _ct_sum_parties(_encrypt_party_slots(ctx, r_i, generator))
+    _, macs = angle(ctx, r_i, e_r, generator)
+    return r_i, e_r, macs
+
+
+def rand_kernel(ctx: DealerContext, generator, ciphertexts: int = 1):
+    """One batch of authenticated random shares <r> of ``ciphertexts``
+    ciphertexts (the first representation of `pair`, without its bracket):
+    (r, mac_r), each FpArray [P, ciphertexts * n], tightened."""
+    shape = (ctx.n_parties, ctx.params.n)
+    if ciphertexts > 1:
+        shape = (ciphertexts,) + shape
+    r_i, _, macs = _random_angle(ctx, generator, shape)
+    return _by_party(ctx, (r_i, macs), ciphertexts)
 
 
 def inv_pair(ctx: DealerContext, generator):
@@ -304,7 +323,12 @@ def triple_kernel(ctx: DealerContext, generator, ciphertexts: int = 1):
     """One triple batch of ``ciphertexts`` ciphertexts, every output
     tightened (bound 2): (a, mac_a, b, mac_b, c, mac_c), each FpArray
     [P, ciphertexts * n]."""
-    outs = (x for shares_macs in triple(ctx, generator, ciphertexts) for x in shares_macs)
+    outs = [x for shares_macs in triple(ctx, generator, ciphertexts) for x in shares_macs]
+    return _by_party(ctx, outs, ciphertexts)
+
+
+def _by_party(ctx: DealerContext, outs, ciphertexts: int) -> tuple:
+    """[ciphertexts, P, n] batch outputs -> [P, ciphertexts * n], tightened."""
     if ciphertexts == 1:
         return tuple(_n2q(x) for x in outs)
     return tuple(_n2q(FpArray(x.limbs.movedim(1, 0).reshape(
@@ -500,28 +524,37 @@ class _Pool:
         return out
 
 
-def _shaped(x: FpArray, shape) -> MpcFp:
-    return MpcFp(x.reshape((x.shape[0],) + tuple(shape)), SHARED)
+def _shaped(x: FpArray, mac: FpArray, shape) -> MpcFp:
+    """Pool slots [P, k] -> a shared wire of batch ``shape``, with its MAC
+    shares when an SPDZ context is in scope."""
+    def f(v: FpArray) -> FpArray:
+        return v.reshape((v.shape[0],) + tuple(shape))
+    return MpcFp(f(x), SHARED, f(mac) if spdz_in_scope() else None)
 
 
 class SheTripleSource:
     """Serves Beaver triples, inverse pairs and random shares from
-    preprocessing batches (`triple`, `inv_pair`, `pair`), for the
-    semi-honest backend (values only; the MACs stay with the batches).
+    preprocessing batches (`triple`, `inv_pair`, `pair`), with their MAC
+    shares under the SPDZ backend (the values alone under the semi-honest
+    one).
 
     Every slot of a batch is served once: a request takes the unused slots
     of earlier batches first and runs a new batch only for the rest (the
     JAX package runs at least one whole batch per request and drops the
-    unused slots).  A triple batch covers ``ciphertexts`` ciphertexts of n
-    slots (the JAX package's is one).  ``batches`` counts the batches run
-    and ``served`` the slots served, per kind."""
+    unused slots); a slot's MAC shares travel with its value.  A triple
+    batch and a batch of <r> shares cover ``ciphertexts`` ciphertexts of n
+    slots (the JAX package's cover one; its <r> batches also compute the
+    [r] representation, which no wire uses).  ``batches`` counts the
+    batches run and ``served`` the slots served, per kind."""
 
     def __init__(self, ctx: DealerContext, generator, ciphertexts: int = 1):
         self.ctx = ctx
         self.generator = generator
-        self._triples = _Pool(lambda: triple_kernel(ctx, generator, ciphertexts)[0::2])
-        self._inv = _Pool(lambda: tuple(_n2q(x[0]) for x in inv_pair(ctx, generator)))
-        self._rand = _Pool(lambda: (_n2q(pair(ctx, generator)[0][0]),))
+        # pool items: (value, mac) pairs, in the order of the batch outputs
+        self._triples = _Pool(lambda: triple_kernel(ctx, generator, ciphertexts))
+        self._inv = _Pool(lambda: tuple(_n2q(x) for pair_ in inv_pair(ctx, generator)
+                                        for x in pair_))
+        self._rand = _Pool(lambda: rand_kernel(ctx, generator, ciphertexts))
 
     def _pools(self):
         return {"triple": self._triples, "inv_pair": self._inv, "pair": self._rand}
@@ -540,21 +573,25 @@ class SheTripleSource:
     def _total(shape) -> int:
         return int(np.prod(shape, dtype=np.int64)) if shape else 1
 
+    def _take(self, pool: _Pool, shape) -> tuple:
+        got = pool.take(self._total(shape))
+        return tuple(_shaped(got[i], got[i + 1], shape) for i in range(0, len(got), 2))
+
     def field_triples(self, spec, shape):
         assert spec is FR
-        a, b, c = self._triples.take(self._total(shape))
-        return tuple(_shaped(x, shape) for x in (a, b, c))
+        return self._take(self._triples, shape)
 
     def inv_pairs(self, spec, shape):
+        """(r, r^-1); the MAC of r^-1 is that of its own encryption."""
         assert spec is FR
-        r, rinv = self._inv.take(self._total(shape))
-        return _shaped(r, shape), _shaped(rinv, shape)
+        return self._take(self._inv, shape)
 
     def group_triples(self, P, scalar_spec):
         """Group Beaver triple (a, B, C = a*B) for scaling a shared point by
         a shared scalar (`share/group.rs:72-111`), from a field triple by the
         linearity of s -> s*G: each party maps its shares of b and c = a*b
-        through the fixed-base product with the group generator."""
+        through the fixed-base product with the group generator, and under
+        SPDZ its MAC shares the same way (sum_i mac_b_i * G = alpha * B)."""
         from ..mpc.group import MpcSWPoint
         from ..ops.curve import SWPoint, sw_scalar_mul
         from ..ops.fp2 import Fp2Array
@@ -565,13 +602,15 @@ class SheTripleSource:
             gen = SWPoint.g2_from_affine_ints([SC.G2_GEN], b.value.device)
         else:
             gen = SWPoint.g1_from_affine_ints([SC.G1_GEN], b.value.device)
-        # b and c through one batched ladder on the shared generator
-        pts = sw_scalar_mul(gen[0], FpArray.stack([b.value, c.value]))
-        return a, MpcSWPoint(pts[0], SHARED), MpcSWPoint(pts[1], SHARED)
+        scal = [b.value, c.value] + ([b.mac, c.mac] if b.mac is not None else [])
+        # every scalar through one batched ladder on the shared generator
+        pts = sw_scalar_mul(gen[0], FpArray.stack(scal))
+        macs = (pts[2], pts[3]) if b.mac is not None else (None, None)
+        return a, MpcSWPoint(pts[0], SHARED, macs[0]), MpcSWPoint(pts[1], SHARED, macs[1])
 
     def rand_shares(self, spec, shape):
         """Random shared values from the <r> pair batches
-        (`preprocessing.rs:823-878`)."""
+        (`preprocessing.rs:823-878`), with their MAC shares under SPDZ."""
         assert spec is FR
-        (r,) = self._rand.take(self._total(shape))
-        return _shaped(r, shape)
+        (r,) = self._take(self._rand, shape)
+        return r

@@ -43,7 +43,7 @@ def build_wide_mul_circuit(cs: ConstraintSystem, a: MpcFp, b: MpcFp):
     c_vars = cs.new_witness_vec(c)
     for i in range(n):
         cs.enforce(LC.of(a_vars[i]), LC.of(b_vars[i]), LC.of(c_vars[i]))
-    out = MpcFp(_sum_last_axis(c.value), c.visibility)
+    out = c.map(_sum_last_axis)
     out_pub = out.open()
     out_var = cs.new_instance(out_pub)
     cs.enforce(LC({v: 1 for v in c_vars}), LC.constant(1), LC.of(out_var))

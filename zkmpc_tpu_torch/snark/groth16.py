@@ -100,17 +100,29 @@ def _domain_size(cs: ConstraintSystem) -> int:
     return n
 
 
-def _toxic_waste(seed: int):
+def _toxic_waste(seed: int, domain_n: int):
     """alpha, beta, gamma, delta, tau via ark `Fp::rand` on a ChaCha12
-    StdRng stream (`compat.ark`)."""
+    StdRng stream (`compat.ark`), in that order.  A degenerate draw is
+    redrawn from the same stream: zero for any of them, or a tau whose
+    n-th power is 1 (a root of unity of the size-``domain_n`` domain,
+    where the Lagrange basis divides by zero).  With no degenerate draw the
+    trapdoor is the reference's."""
     rng = A_.seeded_rng(seed)
-    return tuple(A_.fr_rand(rng) for _ in range(5))
+
+    def draw(ok):
+        while True:
+            v = A_.fr_rand(rng)
+            if v != 0 and ok(v):
+                return v
+    alpha, beta, gamma, delta = (draw(lambda v: True) for _ in range(4))
+    tau = draw(lambda v: pow(v, domain_n, R) != 1)
+    return alpha, beta, gamma, delta, tau
 
 
 def setup_params(cs: ConstraintSystem, seed: int = 0):
     """Host part of setup: toxic waste + QAP evaluations u/v/w at tau (ints)."""
-    alpha, beta, gamma, delta, tau = _toxic_waste(seed)
     n = _domain_size(cs)
+    alpha, beta, gamma, delta, tau = _toxic_waste(seed, n)
     m = cs.num_vars
     nc = len(cs.constraints)
     ninst = cs.num_instance
@@ -184,12 +196,14 @@ def device_setup(cs: ConstraintSystem, seed: int = 0, device="cuda"
     dpk = DeviceProvingKey.__new__(DeviceProvingKey)
     dpk.pk = pk
     dpk.device = torch.device(device)
-    dpk.a_query = _fixed_base_muls(SC.G1_GEN, False, u, device)
-    dpk.b_g1_query = _fixed_base_muls(SC.G1_GEN, False, v, device)
+    # the four G1 queries through one batched ladder (lanes are independent,
+    # so each point is what its own ladder gives)
+    g1 = _fixed_base_muls(SC.G1_GEN, False, u + v + h_scalars + l_scalars, device)
+    ends = [int(e) for e in np.cumsum([len(u), len(v), len(h_scalars), len(l_scalars)])]
+    dpk.a_query, dpk.b_g1_query, dpk.h_query, l_query = (
+        g1[a:b] for a, b in zip([0] + ends[:-1], ends))
+    dpk.l_query = l_query if l_scalars else None
     dpk.b_g2_query = _fixed_base_muls(SC.G2_GEN, True, v, device)
-    dpk.h_query = _fixed_base_muls(SC.G1_GEN, False, h_scalars, device)
-    dpk.l_query = (_fixed_base_muls(SC.G1_GEN, False, l_scalars, device)
-                   if l_scalars else None)
     dpk._set_constant_points(pk)
     return dpk
 

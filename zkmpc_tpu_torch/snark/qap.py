@@ -58,7 +58,7 @@ class DeviceMatrix:
     def matvec(self, z: MpcFp) -> MpcFp:
         """A @ z for a shared assignment z [m] -> shared [n_rows]."""
         assert z.visibility == SHARED
-        return MpcFp(_gather_scale_segsum(self, z.value.tighten()), SHARED)
+        return z.map(lambda f: _gather_scale_segsum(self, f.tighten()))
 
 
 def _gather_scale_segsum(mat: DeviceMatrix, zv: FpArray) -> FpArray:
@@ -100,18 +100,20 @@ def witness_map(spec, matrices, z: MpcFp, domain: Domain, num_instance: int,
 
     ab = a_coset * b_coset          # batched Beaver mul (one comms round)
     hv = ab - c_coset
-    h_evals = MpcFp(hv.value * domain._vanish_inv_fp, hv.visibility)
-    h = MpcFp(domain.coset_ifft(h_evals.value), h_evals.visibility)
+    h_evals = hv.map(lambda f: f * domain._vanish_inv_fp)
+    h = h_evals.map(domain.coset_ifft)
     return h[:domain.n - 1]
 
 
 def _set_rows(az: MpcFp, z: MpcFp, offset: int, count: int) -> MpcFp:
     """az[offset + j] = z[j] for j < count (a slice copy)."""
-    limbs = az.value.limbs.clone()
-    limbs[..., offset:offset + count, :] = z.value.limbs[..., :count, :]
-    return MpcFp(FpArray(limbs, az.spec, max(az.value.bound, z.value.bound)),
-                 SHARED)
+    def upd(dst: FpArray, src: FpArray) -> FpArray:
+        limbs = dst.limbs.clone()
+        limbs[..., offset:offset + count, :] = src.limbs[..., :count, :]
+        return FpArray(limbs, dst.spec, max(dst.bound, src.bound))
+    mac = None if az.mac is None else upd(az.mac, z.mac)
+    return MpcFp(upd(az.value, z.value), SHARED, mac)
 
 
 def _to_coset(x: MpcFp, domain: Domain) -> MpcFp:
-    return MpcFp(domain.coset_fft(domain.ifft(x.value)), x.visibility)
+    return x.map(lambda f: domain.coset_fft(domain.ifft(f)))
