@@ -20,7 +20,12 @@ wrong instance rejected; then checked triple batches timed at 1,024 and
 (``--backend spdz``): MACs on every field and group share, both MAC
 checks passed with residues in their queues; then a tampered field share
 and a tampered group share must fail their checks on the card, and a
-MAC'd plus a MAC-less group share must raise.
+MAC'd plus a MAC-less group share must raise, and so must two tampered
+group shares whose errors cancel.  Phase 8 runs the binary's Marlin branch
+(``main marlin``, a universal KZG setup, the holographic index and the
+collaborative Marlin prove) semi-honest and on SPDZ, then the online
+binary (`zkmpc_tpu_torch/cli/online.py`) over their online_setup.json
+files, proving MyCircuit with Marlin and with Groth16.
 
     python3 chip_smoke.py              # needs one CUDA card
     python3 chip_smoke.py --gates 64   # a quicker main-path run
@@ -994,7 +999,8 @@ def time_bit_rand_sqrt(dev, n_parties=3, shape=(16, 253)):
 def spdz_faults_caught(dev, n_parties=3):
     """On the card: honest field and group openings pass their MAC checks;
     party 1 adding 1 to a field share (its MAC share kept) fails the field
-    check; party 1 adding G to a group share fails the group check; a
+    check; party 1 adding G to a group share fails the group check, and so
+    does party 1 adding G to one point and -G to another of one opening; a
     MAC'd plus a MAC-less group share raises ValueError."""
     import numpy as np
     import torch
@@ -1036,6 +1042,17 @@ def spdz_faults_caught(dev, n_parties=3):
         bumped = sw_add_complete(pt.point, _bcast_sw(g, pt.point.shape))
         G.MpcSWPoint(SWPoint.select(party1, bumped, pt.point), SHARED, pt.mac).reveal()
         fails(ctx.assert_group_macs, "a tampered group share")
+        # +G on one point and -G on another of one opening: the plain sum of
+        # the opened points is the honest one, the weighted check is not
+        pair = G.with_mac_from_public(SWPoint.g1_from_affine_ints(
+            [SC.G1_GEN, SC.g1_mul(SC.G1_GEN, 2)], dev))                     # [P, 2]
+        gg = SWPoint.g1_from_affine_ints([SC.G1_GEN, SC.g1_neg(SC.G1_GEN)], dev)
+        moved = sw_add_complete(pair.point, _bcast_sw(gg, pair.point.shape))
+        opened = G.MpcSWPoint(SWPoint.select(party1.reshape(-1, 1).expand(-1, 2), moved,
+                                             pair.point), SHARED, pair.mac).reveal()
+        if opened[0].to_affine_ints() != [SC.g1_mul(SC.G1_GEN, 2), SC.G1_GEN]:
+            raise AssertionError("phase 7: the cancelling tamper did not open to (2G, G)")
+        fails(ctx.assert_group_macs, "+G and -G on two shares of one opening")
         try:
             pt + G.MpcSWPoint(pt.point, SHARED)
         except ValueError:
@@ -1043,8 +1060,113 @@ def spdz_faults_caught(dev, n_parties=3):
         else:
             raise AssertionError("phase 7: a MAC'd plus a MAC-less group share did not raise")
     log("phase 7 faults on the card: honest field and group openings pass; party 1's "
-        "+1 on a field share and +G on a group share fail their MAC checks; a MAC'd "
+        "+1 on a field share, +G on a group share, and +G and -G on two group shares of "
+        "one opening (errors that cancel in a plain sum) fail their MAC checks; a MAC'd "
         "plus a MAC-less group share raises ValueError")
+
+
+def _marlin_report(what, report, launches, peak, wall):
+    log(f"phase 8 {what}: SRS degree D = {report['srs_degree']}, n = {report['domain_n']}, "
+        f"nx = {report['nx']}, k = {report['k']} (A, B, C); {report['constraints']} "
+        f"constraints, {report['variables']} variables; synthesis {report['synthesis_s']:.2f} s, "
+        f"index {report['index_s']:.2f} s, prove {report['prove_s']:.2f} s "
+        f"({report['prove_openings']} openings), verify {report['verify_s']:.2f} s"
+        + (f", MAC checks {report['mac_check_s']:.2f} s" if "mac_check_s" in report else "")
+        + f"; wall-clock in all {wall:.2f} s; peak device memory {peak} B "
+        f"({peak / 2**30:.2f} GiB)")
+    log(f"phase 8 {what} launches: K1 by width " + ", ".join(
+        f"{k[len('mont_mul_'):]} {v}" for k, v in sorted(launches.items())
+        if k.startswith("mont_mul_n")) + f"; K2 {launches.get('point_add_g1', 0)}, K3 "
+        f"{launches.get('point_add_g2', 0)}")
+
+
+def phase_marlin(slots=1024, n_parties=3):
+    """Phase 8: the `main` binary's Marlin branch, `cli.main.run("marlin",
+    inputs/inputs-template.json)` at `slots` slots and `n_parties` parties,
+    semi-honest and on SPDZ (a universal KZG setup and index of the
+    committed-input circuit, the collaborative prove on SHE
+    preprocessing, verification and a wrong instance rejected; under
+    SPDZ both MAC checks pass with residues, the G1 queue holding Marlin's
+    opened commitments); then the online binary, `cli.online.run` on the
+    stacked transport over those runs' online_setup.json files: MyCircuit
+    proved with Marlin over the semi-honest run's files and with Groth16
+    over the SPDZ run's, each verified and a wrong instance rejected.  The
+    kernel counts are reset just before each run and read just after."""
+    import tempfile
+
+    import torch
+    from zkmpc_tpu_torch.cli import main as CLI
+    from zkmpc_tpu_torch.cli import online as ON
+    from zkmpc_tpu_torch.ops import build as K
+    dev = torch.device(DEVICE)
+    inputs = os.path.join(ROOT, "inputs", "inputs-template.json")
+    total = {}
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launches()
+        t0 = time.time()
+        ok = fn()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = dict(K.LAUNCHES)
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        return ok, launches, torch.cuda.max_memory_allocated(), wall
+
+    with tempfile.TemporaryDirectory() as out:
+        dirs = {}
+        for backend in ("semi", "spdz"):
+            report = {}
+            dirs[backend] = os.path.join(out, backend)
+            ok, launches, peak, wall = counted(lambda: CLI.run(
+                "marlin", inputs, n_parties=n_parties, outdir=dirs[backend], slots=slots,
+                backend=backend, device=dev, report=report))
+            what = f"main marlin --backend {backend} ({slots} slots, {n_parties} parties)"
+            if not (ok and report["verified"] and report["wrong_instance_rejected"]):
+                raise AssertionError(f"phase 8 {what}: verification failed ({report})")
+            if report["prove_openings"] <= 0 or report["prove_served"].get("triple", 0) <= 0:
+                raise AssertionError(f"phase 8 {what}: the prove opened nothing or took no "
+                                     f"preprocessed triple ({report})")
+            if min(launches.get("mont_mul_n51", 0), launches.get("point_add_g1", 0)) <= 0:
+                raise AssertionError(f"phase 8 {what}: K1 at 51 limbs or K2 never ran "
+                                     f"({launches})")
+            if backend == "spdz":
+                if min(report["field_mac_residues"],
+                       report["group_mac_residues_by_group"].get("G1", 0)) <= 0:
+                    raise AssertionError(f"phase 8 {what}: a MAC queue was empty ({report})")
+                log(f"phase 8 {what}: field MAC check over {report['field_mac_residues']} "
+                    f"openings and group MAC check over {report['group_mac_residues']} "
+                    f"openings ({report['group_mac_residues_by_group']}; required non-empty: "
+                    f"{report['group_mac_groups_required']}, a Marlin prove opens no G2 "
+                    f"point) passed")
+            log(f"phase 8 {what}: the proof verifies, a wrong instance is rejected")
+            _marlin_report(what, report, launches, peak, wall)
+        for zksnark, backend in (("marlin", "semi"), ("groth16", "spdz")):
+            report = {}
+            ok, launches, peak, wall = counted(lambda: ON.run(
+                inputs, dirs[backend], n_parties, zksnark=zksnark, device=dev, report=report))
+            what = f"online --zksnark {zksnark} (the {backend} run's online_setup.json)"
+            if not (ok and report["verified"] and report["wrong_instance_rejected"]):
+                raise AssertionError(f"phase 8 {what}: verification failed ({report})")
+            if report["c"] != 4 * 5 or min(launches.get("mont_mul", 0),
+                                           launches.get("point_add_g1", 0)) <= 0:
+                raise AssertionError(f"phase 8 {what}: wrong c or no K1/K2 launch "
+                                     f"({report}, {launches})")
+            log(f"phase 8 {what}: c = a*b = {report['c']} opened, the proof verifies, a wrong "
+                f"instance is rejected; {report['constraints']} constraints, synthesis "
+                f"{report['synthesis_s']:.2f} s, setup {report['setup_s']:.2f} s, prove "
+                f"{report['prove_s']:.2f} s ({report['prove_openings']} openings), verify "
+                f"{report['verify_s']:.2f} s; wall-clock in all {wall:.2f} s; peak device "
+                f"memory {peak} B ({peak / 2**30:.2f} GiB)"
+                + (f"; SRS degree {report['srs_degree']}, n = {report['domain_n']}, nx = "
+                   f"{report['nx']}, k = {report['k']}" if zksnark == "marlin" else ""))
+            log(f"phase 8 {what} launches: K1 by width " + ", ".join(
+                f"{k[len('mont_mul_'):]} {v}" for k, v in sorted(launches.items())
+                if k.startswith("mont_mul_n")) + f"; K2 {launches.get('point_add_g1', 0)}, "
+                f"K3 {launches.get('point_add_g2', 0)}")
+    return total
 
 
 def main(argv=None):
@@ -1068,7 +1190,8 @@ def main(argv=None):
     ped = phase_pedersen()
     main_bin, semi = phase_main()
     spdz = phase_spdz(semi)
-    paths = (wide, ped, main_bin, spdz)
+    marlin = phase_marlin()
+    paths = (wide, ped, main_bin, spdz, marlin)
     launches = {k: sum(p.get(k, 0) for p in paths) for k in set().union(*paths)}
     bad = sorted(m for m in sys.modules if m in ("jax", "zkmpc_tpu")
                  or m.startswith(("jax.", "jaxlib", "zkmpc_tpu.")))

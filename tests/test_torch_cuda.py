@@ -167,3 +167,34 @@ def test_main_spdz_runs_on_the_card(dev, tmp_path):
         CLI.main(["groth16", inputs, "--slots", "1024", "--backend", "spdz",
                   "--outdir", str(tmp_path)])
     assert done.value.code == 0
+
+
+def test_marlin_prove_on_the_card_matches_reference(dev):
+    """The collaborative Marlin prove of `tests/test_marlin.py`'s 2-gate
+    circuit on the card, with the JAX package's share draws injected and
+    the SRS set up on the card: the JAX package's proof, value for value
+    (``fixtures/torch_marlin_3p.npz``), which verifies."""
+    from fixtures import make_torch_marlin_fixture as MF
+    from zkmpc_tpu_torch.mpc.share import MpcContext, MpcFp, king_share, mpc_scope
+    from zkmpc_tpu_torch.parallel.transport import StackedTransport
+    from zkmpc_tpu_torch.snark import kzg, marlin
+    from zkmpc_tpu_torch.snark.r1cs import LC, ConstraintSystem
+    fx = MF.load(np.load(MF.PATH))
+
+    def fa(pair):
+        return FpArray(torch.as_tensor(pair[0]).to(dev), FR, pair[1])
+    K.reset_launches()
+    with mpc_scope(MpcContext(StackedTransport(MF.N_PARTIES, dev), "semi")):
+        cs = ConstraintSystem(FR)
+        a, b = (king_share(_fp(FR, v, dev), None, shares=fa(k))
+                for v, k in zip((MF.A_VALS, MF.B_VALS), fx["king"]))
+        av, bv = cs.new_witness_vec(a), cs.new_witness_vec(b)
+        cv = cs.new_instance_vec(MpcFp.const(FR, [x * y for x, y in zip(MF.A_VALS, MF.B_VALS)]))
+        for i in range(2):
+            cs.enforce(LC.of(av[i]), LC.of(bv[i]), LC.of(cv[i]))
+        srs = kzg.setup(fx["index"]["degree"], seed=MF.SRS_SEED, device=dev)
+        index = marlin.index_with_srs(srs, cs, dev)
+        proof = marlin.prove(index, cs, masks=[fa(r) for r in fx["rand"]])
+        assert proof == fx["proof"]
+        assert marlin.verify(index, cs.instance_ints(), proof)
+    assert min(K.LAUNCHES.get("mont_mul", 0), K.LAUNCHES.get("point_add_g1", 0)) > 0

@@ -82,8 +82,9 @@ def test_run_config_and_context():
         assert semi.triple_source.field_triples(FR, (2,))[0].mac is None
     with pytest.raises(AssertionError, match="initialize"):
         CFG.build_mpc_context(CFG.RunConfig(backend="spdz"), t)
-    with pytest.raises(SystemExit, match="Marlin"):
-        CLI.main(["marlin", INPUTS, "--device", "cpu"])
+    # both proof systems are ported: only an unknown one exits at once
+    with pytest.raises(SystemExit, match="unknown zksnark"):
+        CLI.run("plonk", INPUTS, device=CPU)
 
 
 def test_online_setup_files_are_read_by_the_reference(tmp_path):

@@ -18,8 +18,9 @@ which a `slow` test regenerates.
   ``mpc_msm`` and the group-Beaver ``scale``, opened against the spec
   oracle with every party's MAC share against alpha_i times the point
   (the product's MAC shares against alpha times the point less its public
-  offset); a tampered share fails the check; a MAC'd plus a MAC-less
-  share raises.
+  offset); a tampered share fails the check, and so do two tampered
+  shares whose errors cancel in a plain sum (+G and -G, in one batch and
+  across two openings); a MAC'd plus a MAC-less share raises.
 - The 4-gate wide-mul prove under SPDZ gives the JAX package's proof,
   which verifies, with both MAC queues non-empty and passing.
 """
@@ -39,7 +40,7 @@ from zkmpc_tpu_torch.mpc import group as G
 from zkmpc_tpu_torch.mpc import share as S
 from zkmpc_tpu_torch.mpc.group import MpcSWPoint
 from zkmpc_tpu_torch.mpc.share import SHARED, MpcContext, MpcFp, king_share, mpc_scope
-from zkmpc_tpu_torch.ops.curve import SWPoint, sw_add_complete
+from zkmpc_tpu_torch.ops.curve import SWPoint, sw_add_complete, sw_neg
 from zkmpc_tpu_torch.ops.limbs import FR, FpArray
 from zkmpc_tpu_torch.ops.msm import _bcast_sw
 from zkmpc_tpu_torch.parallel.transport import StackedTransport
@@ -194,6 +195,55 @@ def _group_cases(doc, gen):
             shared + MpcSWPoint(shared.point, SHARED)
 
 
+def _cancelling_cases(doc, gen):
+    """Tampered group shares whose errors cancel in a plain sum: party 1
+    adds +G to one point and -G to another, in one opened batch and
+    across two openings.  The opened points still sum to the honest sum
+    and the MAC shares are untouched, so a check that weighs every point
+    alike would pass; the check weighs each point by its own rho and must
+    fail."""
+    alphas = doc["alphas"]
+    src = ZF.FixedSource("zkmpc_tpu_torch", alphas, ZF.SRC_SEED + 3, device=CPU)
+    ctx = _ctx(src, alphas, mac_check_generator=gen)
+    with mpc_scope(ctx):
+        g = SWPoint.g1_from_affine_ints([SC.G1_GEN], CPU)[0]
+        pts = G.with_mac_from_public(SWPoint.g1_from_affine_ints(
+            [_g1(k) for k in (1, 2, 3, 4)], CPU))                  # [P, 4]
+
+        def bumped(w, party, sign):
+            """Party ``party`` adds sign * G to its share of ``w``."""
+            gg = _bcast_sw(g if sign > 0 else sw_neg(g), w.point.shape)
+            mask = (torch.arange(ZF.N_PARTIES) == party).reshape(
+                (ZF.N_PARTIES,) + (1,) * (len(w.point.shape) - 1)).expand(w.point.shape)
+            return MpcSWPoint(SWPoint.select(mask, sw_add_complete(w.point, gg), w.point),
+                              SHARED, w.mac)
+
+        def part(w, a, b):
+            return MpcSWPoint(w.point[:, a:b], SHARED, w.mac[:, a:b])
+        # one batch: +G on the first point, -G on the second
+        pair = part(pts, 0, 2)
+        sign = torch.tensor([1, -1])
+        one_batch = MpcSWPoint(SWPoint.select(sign.reshape(1, 2).expand(3, 2) > 0,
+                                              bumped(pair, 1, 1).point,
+                                              bumped(pair, 1, -1).point), SHARED, pair.mac)
+        opened = one_batch.reveal()[0].to_affine_ints()
+        assert opened == [_g1(2), _g1(1)]
+        assert SC.g1_add(*opened) == _g1(3)            # the plain sum is the honest one
+        with pytest.raises(AssertionError, match="group MAC"):
+            ctx.assert_group_macs(require_nonempty=True)
+        # two openings: party 1 +G on one point, party 2 -G on another
+        a = bumped(part(pts, 2, 3), 1, 1).reveal()[0].to_affine_ints()
+        b = bumped(part(pts, 3, 4), 2, -1).reveal()[0].to_affine_ints()
+        assert SC.g1_add(a[0], b[0]) == _g1(7) and a != [_g1(3)]
+        assert ctx.group_mac_residue_count == 2
+        with pytest.raises(AssertionError, match="group MAC"):
+            ctx.assert_group_macs(require_nonempty=True)
+        # the same openings untampered pass
+        part(pts, 2, 3).reveal()
+        part(pts, 3, 4).reveal()
+        assert ctx.assert_group_macs(require_nonempty=True)
+
+
 def _spdz_prove(doc, gen):
     """The 4-gate wide-mul prove under SPDZ: r and s are the slice's, so
     the proof is the slice's, as the JAX package's was."""
@@ -222,10 +272,10 @@ def _spdz_prove(doc, gen):
     assert not groth16.verify(dpk.pk.vk, [1, (inst[1] + 1) % P], proof)
 
 
-@pytest.mark.parametrize("case", ["group", "prove"])
+@pytest.mark.parametrize("case", ["group", "cancelling", "prove"])
 def test_group_macs_and_spdz_prove_match_reference(case):
     doc = ZF.load(np.load(ZF.PATH))["json"]
-    run = {"group": _group_cases, "prove": _spdz_prove}[case]
+    run = {"group": _group_cases, "cancelling": _cancelling_cases, "prove": _spdz_prove}[case]
     run(doc, torch.Generator().manual_seed(4))
 
 

@@ -1,31 +1,34 @@
 """Preprocessing + committed-input proof binary.
 
 Port of ``zkmpc_tpu/cli/main.py`` (the reference's `cargo run --bin main
-{groth16|marlin} inputs.json`, `src/main.rs:71-237`), Groth16 branch:
+{groth16|marlin} inputs.json`, `src/main.rs:71-237`):
 
 1. SPDZ preprocessing over the SHE layer: key generation, ``initialize``
    (alpha and beta key shares under ZKPoPKs), ``pair`` and ``triple``,
    batched across ``--slots`` SIMD slots.
 2. ``MySecretInputCircuit`` from the JSON input x (range [3, 7) and a
    Pedersen commitment to x under 16 random bits), synthesized and proved
-   at ``--parties`` parties with Groth16, every Beaver triple, inverse
-   pair and group triple served from preprocessing
-   (`she.preprocessing.SheTripleSource`); the proof is published as ark's
-   192-byte blob, the parsed blob verified and a wrong instance rejected.
-   ``--backend semi`` is the reference's `honest` feature; ``--backend
-   spdz`` its `malicious` one: every field and group share carries MAC
-   shares under the preprocessed key alpha, and after the prove both
-   batched MAC checks must pass, neither of them vacuous.
+   at ``--parties`` parties with Groth16 or Marlin, every Beaver triple,
+   inverse pair, group triple and random share served from preprocessing
+   (`she.preprocessing.SheTripleSource`).  A Groth16 proof is published as
+   ark's 192-byte blob and the parsed blob verified; a Marlin proof (a
+   universal KZG setup and the circuit's index, `snark.marlin`) is
+   verified as it was opened; either way a wrong instance must be
+   rejected.  ``--backend semi`` is the reference's `honest` feature;
+   ``--backend spdz`` its `malicious` one: every field and group share
+   carries MAC shares under the preprocessed key alpha, and after the
+   prove both batched MAC checks must pass, neither of them vacuous (the
+   group queue must hold residues of each group the prove opens: G1 and G2
+   for Groth16, G1 for Marlin, whose G2 work is the host verifier's).
 3. Per-party ``<outdir>/<i>/online_setup.json`` r-shares in the
    reference's 0x-hex JSON format (`src/serialize.rs:101-147`) and
    ``<outdir>/commitment.json``.
 
-Usage: python -m zkmpc_tpu_torch.cli.main groth16 inputs.json
+Usage: python -m zkmpc_tpu_torch.cli.main {groth16|marlin} inputs.json
        [--parties 3] [--outdir outputs] [--slots 8] [--seed 0]
        [--backend semi|spdz] [--device cuda]
 
-It runs on the CUDA card unless ``--device cpu`` is given.  ``marlin`` is
-not ported yet and exits nonzero.
+It runs on the CUDA card unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -48,12 +51,9 @@ from ..ops.limbs import FR, FpArray
 from ..parallel.transport import StackedTransport
 from ..she import bgv
 from ..she import preprocessing as PP
-from ..snark import groth16
+from ..snark import groth16, marlin
 from ..snark.r1cs import ConstraintSystem
 from ..utils import serialize as SER
-
-MARLIN_NOT_PORTED = ("main marlin: Marlin (snark/kzg.py, snark/marlin.py) is not "
-                     "ported yet: ROADMAP.md, Queue 1")
 
 #: slots of a triple batch of the online phase's source: a batch costs about
 #: the same ~33,600 kernel launches at any ring degree, and on an H100 the
@@ -81,12 +81,12 @@ def run(zksnark: str, inputs_path: str, n_parties: int = 3,
         backend: str = "semi", device="cuda", report: dict | None = None) -> bool:
     """The `main` binary's run; True if the proof verifies and a wrong
     instance is rejected.  ``report``: a dict that receives the phases'
-    wall-clock (seconds, to a device synchronize), the circuit's size, the
-    preprocessing batches run and slots served during synthesis and prove,
-    the openings and, under SPDZ, the MAC residue counts and check time."""
-    if zksnark == "marlin":
-        raise SystemExit(MARLIN_NOT_PORTED)
-    if zksnark != "groth16":
+    wall-clock (seconds, to a device synchronize: setup or, for Marlin,
+    index, then prove, check and verify), the circuit's size (and Marlin's
+    SRS degree, domains and index sizes), the preprocessing batches run and
+    slots served during synthesis and prove, the openings and, under SPDZ,
+    the MAC residue counts and check time."""
+    if zksnark not in ("groth16", "marlin"):
         raise SystemExit(f"unknown zksnark {zksnark!r}")
     cfg = RunConfig(n_parties=n_parties, backend=backend, zksnark=zksnark,
                     slots=slots, seed=seed, outdir=outdir)
@@ -154,39 +154,60 @@ def run(zksnark: str, inputs_path: str, n_parties: int = 3,
             raise AssertionError("circuit unsatisfied")
         print(f"constraints: {len(cs.constraints)}")
         t = time.time()
-        dpk = groth16.device_setup(cs, seed=seed + 1, device=dev)
-        t = lap("setup_s", t)
+        if zksnark == "groth16":
+            dpk = groth16.device_setup(cs, seed=seed + 1, device=dev)
+            t = lap("setup_s", t)
+        else:
+            index = marlin.setup_and_index(cs, seed=seed + 1, device=dev)
+            t = lap("index_s", t)
+            rep.update(srs_degree=len(index.srs.powers) - 1, domain_n=index.domain_n,
+                       nx=index.nx, k=[m.k_size for m in index.index_comms])
         batches, served, rounds = dict(src.batches), dict(src.served), transport.stats.rounds
-        proof = groth16.prove(dpk, cs, gens["prove"])
+        if zksnark == "groth16":
+            pints = groth16.proof_to_ints(groth16.prove(dpk, cs, gens["prove"]))
+        else:
+            proof = marlin.prove(index, cs, gens["prove"])
         lap("prove_s", t)
         rep.update(prove_batches={k: v - batches[k] for k, v in src.batches.items()},
                    prove_served={k: v - served[k] for k, v in src.served.items()},
                    prove_openings=transport.stats.rounds - rounds)
-        pints = groth16.proof_to_ints(proof)
         instance = cs.instance_ints()
         if backend == "spdz":
             # the batched MAC checks over every value opened in the run,
-            # required non-vacuous: the queues must hold residues
+            # required non-vacuous: the field queue and the queue of each
+            # group the prove opens must hold residues
+            need = ("G1", "G2") if zksnark == "groth16" else ("G1",)
+            counts = mctx.group_mac_residue_counts
             rep.update(field_mac_residues=mctx.mac_residue_count,
-                       group_mac_residues=mctx.group_mac_residue_count)
+                       group_mac_residues=mctx.group_mac_residue_count,
+                       group_mac_residues_by_group=counts, group_mac_groups_required=need)
             t = time.time()
             mctx.assert_field_macs(require_nonempty=True)
+            if any(counts.get(g, 0) == 0 for g in need):
+                raise AssertionError(f"SPDZ group MAC queue empty for a group of {need} "
+                                     f"({counts})")
             mctx.assert_group_macs(require_nonempty=True)
             lap("mac_check_s", t)
             print(f"spdz MAC checks passed ({rep['field_mac_residues']} field and "
-                  f"{rep['group_mac_residues']} group openings checked)")
-    # publish the proof in ark's `Proof::serialize` format and verify the
-    # PARSED blob: the round trip is the interop contract with the
-    # reference's serialized proofs
-    os.makedirs(outdir, exist_ok=True)
-    with open(os.path.join(outdir, "proof.bin"), "wb") as f:
-        f.write(ARK.groth16_proof_from_ints(pints))
-    with open(os.path.join(outdir, "proof.bin"), "rb") as f:
-        parsed = ARK.groth16_proof_from_bytes(f.read())
-    ok = groth16.verify(dpk.pk.vk, instance, parsed)
+                  f"{rep['group_mac_residues']} group openings checked, {counts})")
     bad = list(instance)
     bad[1] = (bad[1] + 1) % p
-    neg = not groth16.verify(dpk.pk.vk, bad, parsed)
+    t = time.time()
+    if zksnark == "groth16":
+        # publish the proof in ark's `Proof::serialize` format and verify
+        # the PARSED blob: the round trip is the interop contract with the
+        # reference's serialized proofs
+        os.makedirs(outdir, exist_ok=True)
+        with open(os.path.join(outdir, "proof.bin"), "wb") as f:
+            f.write(ARK.groth16_proof_from_ints(pints))
+        with open(os.path.join(outdir, "proof.bin"), "rb") as f:
+            parsed = ARK.groth16_proof_from_bytes(f.read())
+        ok = groth16.verify(dpk.pk.vk, instance, parsed)
+        neg = not groth16.verify(dpk.pk.vk, bad, parsed)
+    else:
+        ok = marlin.verify(index, instance, proof)
+        neg = not marlin.verify(index, bad, proof)
+    lap("verify_s", t)
     rep.update(verified=ok, wrong_instance_rejected=neg, instance=instance,
                triple_batch_slots=per_batch * slots,
                openings=transport.stats.rounds, batches=dict(src.batches))

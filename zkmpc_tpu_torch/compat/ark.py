@@ -1,18 +1,23 @@
-"""arkworks v0.3 compatibility: `test_rng`, `Fp::rand` and the Groth16
-proof blob.
+"""arkworks v0.3 compatibility: `test_rng`, `Fp::rand`, the Groth16 proof
+blob and ark-marlin's Blake2s Fiat-Shamir RNG.
 
 The port's copy of what it uses from ``zkmpc_tpu/compat/ark.py``: the
-seeded ChaCha12 stream and the field sampling that `snark.groth16` draws
-its toxic waste from, so a setup from the same seed gives the reference's
-key; and the 192-byte compressed proof that the `main` binary publishes.
-Unlike the reference's, the port's point decompression rejects a point
-outside the prime-order subgroup.
+seeded ChaCha12 stream and the field sampling that `snark.groth16` and
+`snark.kzg` draw their toxic waste from, so a setup from the same seed
+gives the reference's key; the 192-byte compressed proof that the `main`
+binary publishes; and the Marlin transcript (`FiatShamirRng`, the point
+encodings it absorbs).  Unlike the reference's, the port's point
+decompression rejects a point outside the prime-order subgroup.
 
 Parity targets (reference file:line):
 - test_rng seed + StdRng=ChaCha12: `arkworks/std/src/rand_helper.rs:31-39`,
   `arkworks/std/Cargo.toml:16` (rand 0.8 -> ChaCha12 StdRng).
 - Fp sampling (limb-wise, top-bits shaved, rejection, raw limbs ARE the
   Montgomery repr): `arkworks/algebra/ff/src/fields/arithmetic.rs:194-224`.
+- FiatShamirRng<Blake2s>: seed = H(bytes), absorb: seed = H(new || seed),
+  ChaCha20 reseeded from the digest: `arkworks/marlin/src/rng.rs:40-70`.
+- Marlin transcript init: H(b"MARLIN-2019" || index_vk || public_input)
+  (`arkworks/marlin/src/lib.rs:76,163,346`).
 """
 
 from __future__ import annotations
@@ -34,7 +39,7 @@ ARK_TEST_RNG_SEED = bytes([
 def test_rng() -> ChaChaRng:
     """`ark_std::test_rng()`: rand 0.8 StdRng (ChaCha12) with the fixed
     seed."""
-    return ChaChaRng(ARK_TEST_RNG_SEED)
+    return ChaChaRng(ARK_TEST_RNG_SEED, rounds=12)
 
 
 def seeded_rng(seed: int) -> ChaChaRng:
@@ -44,7 +49,7 @@ def seeded_rng(seed: int) -> ChaChaRng:
     a Blake2s-derived 32-byte seed (`StdRng::from_seed` semantics)."""
     if seed == 0:
         return test_rng()
-    return ChaChaRng(hashlib.blake2s(b"zkmpc-seed:%d" % seed).digest())
+    return ChaChaRng(hashlib.blake2s(b"zkmpc-seed:%d" % seed).digest(), rounds=12)
 
 
 def fp_rand(rng: ChaChaRng, p: int, nlimbs: int, modulus_bits: int) -> int:
@@ -67,14 +72,18 @@ def fr_rand(rng: ChaChaRng) -> int:
     return fp_rand(rng, FR_P, FR_LIMBS, FR_BITS)
 
 
+def fq_rand(rng: ChaChaRng) -> int:
+    return fp_rand(rng, FQ_P, FQ_LIMBS, FQ_BITS)
+
+
 # --- CanonicalSerialize of points and the Groth16 proof blob ----------------
 # Parity targets: SWFlags (PositiveY = 1<<7, Infinity = 1<<6 in the top
 # byte) `arkworks/algebra/serialize/src/flags.rs:63-130`; serialize_with_flags
 # `algebra/ff/src/fields/macros.rs`; compressed affine points
 # `algebra/ec/src/models/short_weierstrass_jacobian.rs:850-876`.
 
-FQ_P = params.FQ_MODULUS          # 377 bits
-FQ_BITS = 377
+FQ_P = params.FQ_MODULUS          # 377 bits, 6 limbs
+FQ_LIMBS, FQ_BITS = 6, 377
 SW_INFINITY = 1 << 6
 SW_POSITIVE_Y = 1 << 7
 #: BLS12-377 Fq2 = Fq[u]/(u^2 - NR), NR = -5
@@ -145,6 +154,33 @@ def g2_compressed(pt) -> bytes:
     return fq2_to_bytes(x0, x1, SW_POSITIVE_Y if _fq2_y_is_positive(y0, y1) else 0)
 
 
+def g1_uncompressed(pt) -> bytes:
+    """x (no flags) then y with flags (`short_weierstrass_jacobian.rs:
+    865-876`); 96 bytes."""
+    if pt is None:
+        return fp_to_bytes(0, FQ_BITS) + fp_serialize_with_flags(0, FQ_BITS, SW_INFINITY)
+    x, y = pt
+    return fp_to_bytes(x, FQ_BITS) + fp_serialize_with_flags(y, FQ_BITS, 0)
+
+
+def g2_uncompressed(pt) -> bytes:
+    """x then y, each Fq2 (c0, c1), flags on y's c1; 192 bytes."""
+    if pt is None:
+        return fq2_to_bytes(0, 0) + fq2_to_bytes(0, 0, SW_INFINITY)
+    (x0, x1), (y0, y1) = pt
+    return fq2_to_bytes(x0, x1) + fq2_to_bytes(y0, y1, 0)
+
+
+def g1_affine_to_bytes(pt) -> bytes:
+    """ToBytes (the Fiat-Shamir absorb encoding, not CanonicalSerialize):
+    full-width x || y || infinity byte (`short_weierstrass_jacobian.rs:
+    315-322`): Fq writes 48 bytes, the bool one, 97 in all."""
+    if pt is None:
+        return bytes(48) + bytes(48) + b"\x01"
+    x, y = pt
+    return int(x).to_bytes(48, "little") + int(y).to_bytes(48, "little") + b"\x00"
+
+
 def _sqrt_mod(a: int, p: int) -> int | None:
     """Tonelli-Shanks (BLS12-377 Fq has p = 1 mod 4, two-adicity 46)."""
     if a == 0:
@@ -210,6 +246,47 @@ def _in_subgroup(pt, add) -> bool:
     return _times_order(pt, add) is None
 
 
+def g1_in_subgroup(pt) -> bool:
+    """r * pt is infinity, for an affine point on G1's curve (y^2 = x^3 + 1):
+    `_times_order` in Jacobian coordinates, with no inversion a step."""
+    p = FQ_P
+    x, y = pt
+
+    def dbl(X, Y, Z):                            # dbl-2009-l; None: infinity
+        if Y % p == 0:
+            return None
+        a, b = X * X % p, Y * Y % p
+        c = b * b % p
+        d = 2 * ((X + b) ** 2 - a - c) % p
+        e = 3 * a % p
+        X3 = (e * e - 2 * d) % p
+        return X3, (e * (d - X3) - 8 * c) % p, 2 * Y * Z % p
+
+    acc = None
+    for bit in bin(params.FR_MODULUS)[2:]:
+        if acc is not None:
+            acc = dbl(*acc)
+        if bit == "0":
+            continue
+        if acc is None:
+            acc = (x, y, 1)
+            continue
+        X, Y, Z = acc                            # madd-2007-bl, pt affine
+        z2 = Z * Z % p
+        h = (x * z2 - X) % p
+        r = 2 * (y * z2 * Z - Y) % p
+        if h == 0:                               # acc = pt or -pt
+            acc = None if r else dbl(x, y, 1)
+            continue
+        hh = h * h % p
+        i = 4 * hh % p
+        j = h * i % p
+        v = X * i % p
+        X3 = (r * r - j - 2 * v) % p
+        acc = X3, (r * (v - X3) - 2 * Y * j) % p, ((Z + h) ** 2 - z2 - hh) % p
+    return acc is None
+
+
 def g1_decompress(b: bytes):
     """(x, y) or None from the 48-byte compressed form, on y^2 = x^3 + 1
     (BLS12-377 G1).  Raises ValueError for a point off the curve or outside
@@ -225,7 +302,7 @@ def g1_decompress(b: bytes):
         raise ValueError("not on curve")
     if _y_is_positive(y, FQ_P) != bool(flags & SW_POSITIVE_Y):
         y = (FQ_P - y) % FQ_P
-    if not _in_subgroup((x, y), SC.g1_add):
+    if not g1_in_subgroup((x, y)):
         raise ValueError("not in the prime-order subgroup")
     return x, y
 
@@ -278,3 +355,40 @@ def groth16_proof_from_bytes(blob: bytes):
         raise ValueError(f"an ark Groth16 proof is 192 bytes, got {len(blob)}")
     return g1_decompress(blob[0:48]), g2_decompress(blob[48:144]), \
         g1_decompress(blob[144:192])
+
+
+# --- Fiat-Shamir -----------------------------------------------------------
+
+class FiatShamirRng:
+    """ark-marlin `FiatShamirRng<Blake2s>` (`rng.rs:40-70`): seed =
+    BLAKE2s-256(init bytes), a ChaCha20 stream keyed by the seed; absorb(new)
+    re-seeds with BLAKE2s-256(new || seed)."""
+
+    def __init__(self, seed_bytes: bytes):
+        self.seed = hashlib.blake2s(seed_bytes).digest()
+        self.r = ChaChaRng(self.seed, rounds=20)
+
+    def absorb(self, material: bytes):
+        self.seed = hashlib.blake2s(material + self.seed).digest()
+        self.r = ChaChaRng(self.seed, rounds=20)
+
+    def next_u32(self) -> int:
+        return self.r.next_u32()
+
+    def next_u64(self) -> int:
+        return self.r.next_u64()
+
+    def fr_challenge(self) -> int:
+        """`F::rand(&mut fs_rng)`, what the Marlin verifier's rounds draw
+        (`ahp/verifier.rs:59-98`)."""
+        return fr_rand(self.r)
+
+
+def marlin_fs_init(index_vk_bytes: bytes, public_input_ints) -> FiatShamirRng:
+    """Transcript head: H(PROTOCOL_NAME || index_vk || public_input)
+    (`marlin/src/lib.rs:163,346`); public inputs as full-width Fr limbs
+    (ToBytes, 32 bytes little-endian each)."""
+    buf = b"MARLIN-2019" + index_vk_bytes
+    for v in public_input_ints:
+        buf += int(v).to_bytes(32, "little")
+    return FiatShamirRng(buf)

@@ -1,9 +1,12 @@
-"""Pure-Python ChaCha12 keystream matching Rust's `rand_chacha` (v0.3)
-`ChaCha12Rng`, the RNG behind arkworks' `test_rng()` (rand 0.8 `StdRng` =
-ChaCha12, fixed seed, `arkworks/std/src/rand_helper.rs:31-39`).
+"""Pure-Python ChaCha keystream matching Rust's `rand_chacha` (v0.3), the
+RNG behind both arkworks' `test_rng()` (rand 0.8 `StdRng` = ChaCha12, fixed
+seed, `arkworks/std/src/rand_helper.rs:31-39`) and ark-marlin's
+`FiatShamirRng` (`ChaChaRng` = ChaCha20 reseeded per absorb,
+`arkworks/marlin/src/rng.rs:40-70`).
 
 The port's copy of what it uses from ``zkmpc_tpu/compat/chacha.py``: the
-stream that `compat.ark.fr_rand` draws the setup's toxic waste from.
+stream that `compat.ark.fr_rand` draws the setups' toxic waste from, and
+the Marlin transcript's.
 
 Layout (djb's original ChaCha, as used by rand_chacha): state words 0-3 are
 the "expand 32-byte k" constants, 4-11 the key (LE u32s), 12-13 a 64-bit
@@ -18,7 +21,6 @@ from __future__ import annotations
 
 _MASK32 = 0xFFFFFFFF
 _CONSTANTS = (0x61707865, 0x3320646E, 0x79622D32, 0x6B206574)
-ROUNDS = 12                 # StdRng is ChaCha12
 
 
 def _rotl(x: int, n: int) -> int:
@@ -36,11 +38,11 @@ def _quarter(s, a, b, c, d):
     s[b] = _rotl(s[b] ^ s[c], 7)
 
 
-def chacha_block(state16):
-    """One ChaCha12 block: 12 rounds over a copy of the 16-word state, then
-    the feed-forward addition.  Returns 16 output words."""
+def chacha_block(state16, rounds: int = 20):
+    """One ChaCha block: ``rounds`` rounds over a copy of the 16-word
+    state, then the feed-forward addition.  Returns 16 output words."""
     x = list(state16)
-    for _ in range(ROUNDS // 2):
+    for _ in range(rounds // 2):
         _quarter(x, 0, 4, 8, 12)
         _quarter(x, 1, 5, 9, 13)
         _quarter(x, 2, 6, 10, 14)
@@ -53,12 +55,16 @@ def chacha_block(state16):
 
 
 class ChaChaRng:
-    """rand_chacha-compatible `ChaCha12Rng` (= rand 0.8's `StdRng`)."""
+    """rand_chacha-compatible stream RNG: ``rounds=20`` is `ChaCha20Rng`
+    (ark-marlin's FiatShamirRng core), ``rounds=12`` `ChaCha12Rng` (= rand
+    0.8's `StdRng`, arkworks' test_rng)."""
 
     BUF_WORDS = 64          # rand_chacha generates 4 blocks per refill
 
-    def __init__(self, seed: bytes):
+    def __init__(self, seed: bytes, rounds: int = 20):
         assert len(seed) == 32
+        assert rounds in (8, 12, 20)
+        self.rounds = rounds
         self.key = [int.from_bytes(seed[i * 4:i * 4 + 4], "little")
                     for i in range(8)]
         self.counter = 0    # 64-bit block counter
@@ -72,7 +78,7 @@ class ChaChaRng:
             st = list(_CONSTANTS) + self.key + [
                 self.counter & _MASK32, (self.counter >> 32) & _MASK32,
                 self.stream & _MASK32, (self.stream >> 32) & _MASK32]
-            out.extend(chacha_block(st))
+            out.extend(chacha_block(st, self.rounds))
             self.counter = (self.counter + 1) & 0xFFFFFFFFFFFFFFFF
         self.buf = out
 

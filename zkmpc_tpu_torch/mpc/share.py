@@ -34,7 +34,8 @@ class MpcContext:
 
     ``alpha_share``: FpArray [P], each party's share of the MAC key.  The
     field check weighs each opening's residues by random rho drawn from
-    ``mac_check_generator`` (none: weight 1); ``rho_bits``: optional
+    ``mac_check_generator`` (none: weight 1); the group check weighs each
+    opened point by a rho from it and needs it; ``rho_bits``: optional
     injected raw draws, one (hi, lo) pair per opening in order (see
     `rand.uniform_fp`), in place of the generator's."""
 
@@ -53,11 +54,10 @@ class MpcContext:
         self.rho_bits = rho_bits
         self._mac_accum = None       # random linear combination of residues
         self._mac_count = 0
-        # group residues, one queue per group (G1 and G2 do not add): the
-        # folded MAC shares and the folded opened points, alpha applied once
-        # when the queue is checked (sum_j (mac_j - alpha_i P_j) =
-        # sum_j mac_j - alpha_i sum_j P_j)
-        self._group_accum = {}
+        # group residues, one queue per group (G1 and G2 do not add): each
+        # opening's MAC shares and opened points, weighed and folded at the
+        # check
+        self._group_queue = {}
         self._group_count = 0
 
     def alpha_for(self, batch_ndim: int) -> FpArray:
@@ -110,17 +110,11 @@ class MpcContext:
 
     def accumulate_group_mac_residue(self, mac, opened):
         """mac: a party-shaped SWPoint of MAC shares; opened: the opened
-        point, party-shaped (replicated).  Each is folded to one point per
-        party with complete adds and queued by group.  Every opening has
-        weight 1, as in the reference: unlike the field check's rho, this
-        lets errors that cancel across openings through (ROADMAP Queue 3)."""
-        from ..ops.curve import sw_add_complete
-        from ..ops.msm import _sw_reduce_last
-        key = type(opened.x).__name__
-        folded = tuple(_sw_reduce_last(p.reshape((p.shape[0], -1))) for p in (mac, opened))
-        prev = self._group_accum.get(key)
-        self._group_accum[key] = folded if prev is None else tuple(
-            sw_add_complete(a, b) for a, b in zip(prev, folded))
+        point, party-shaped (replicated).  Both are queued by group, one
+        entry per point, for the weighted check."""
+        key = "G1" if isinstance(opened.x, FpArray) else "G2"
+        flat = tuple(p.reshape((p.shape[0], -1)) for p in (mac, opened))
+        self._group_queue.setdefault(key, []).append(flat)
         self._group_count += 1
 
     @property
@@ -129,15 +123,37 @@ class MpcContext:
         that must not be vacuous asserts this is nonzero)."""
         return self._group_count
 
+    @property
+    def group_mac_residue_counts(self) -> dict:
+        """The openings queued since the last check, by group ("G1", "G2")."""
+        return {k: len(v) for k, v in self._group_queue.items()}
+
     def drain_group_mac_check(self) -> list:
-        """The accumulated group residue shares, one party-shaped point per
-        group: sum mac_i - alpha_i * sum opened (each must open to
-        infinity)."""
-        from ..ops.curve import sw_add_complete, sw_neg, sw_scalar_mul
+        """The group residue shares, one party-shaped point per group:
+        sum_j rho_j * (mac_ij - alpha_i * P_j) over every queued point j,
+        with one public rho_j per point drawn from ``mac_check_generator``
+        (the same for every party), so tampered shares cannot cancel
+        across points, as long as the tamperer cannot predict the rhos:
+        ``config.make_context`` seeds that generator from the public run
+        seed, so a party that knows it can.  Each group is one MSM of its queued MAC shares
+        (scalars rho_j) and opened points (scalars -alpha_i * rho_j); each
+        residue must open to infinity."""
+        from ..ops.curve import SWPoint
+        from ..ops.msm import sw_msm
         out = []
-        for mac, opened in self._group_accum.values():
-            out.append(sw_add_complete(mac, sw_neg(sw_scalar_mul(opened, self.alpha_for(0)))))
-        self._group_accum = {}
+        for entries in self._group_queue.values():
+            if self.mac_check_generator is None:
+                raise ValueError("the group MAC check draws its weights from "
+                                 "mac_check_generator, which this context lacks")
+            macs = SWPoint.concat([m for m, _ in entries], axis=-1)         # [P, M]
+            opened = SWPoint.concat([o for _, o in entries], axis=-1)
+            spec = self.alpha_share.spec
+            rho = R.uniform_fp(self.mac_check_generator, spec, macs.shape[1:],
+                               device=macs.device)                          # [M]
+            rho_p = rho.broadcast_to(macs.shape)
+            scal = FpArray.concat([rho_p, -(rho_p * self.alpha_for(1))], axis=-2)
+            out.append(sw_msm(SWPoint.concat([macs, opened], axis=-1), scal))
+        self._group_queue = {}
         self._group_count = 0
         return out
 
