@@ -21,11 +21,19 @@ wrong instance rejected; then checked triple batches timed at 1,024 and
 checks passed with residues in their queues; then a tampered field share
 and a tampered group share must fail their checks on the card, and a
 MAC'd plus a MAC-less group share must raise, and so must two tampered
-group shares whose errors cancel.  Phase 8 runs the binary's Marlin branch
+group shares whose errors cancel, and field and group errors weighted to
+cancel under the rhos the public seed would predict (the checks' rhos come
+from the parties' coin toss).  Phase 8 runs the binary's Marlin branch
 (``main marlin``, a universal KZG setup, the holographic index and the
 collaborative Marlin prove) semi-honest and on SPDZ, then the online
 binary (`zkmpc_tpu_torch/cli/online.py`) over their online_setup.json
-files, proving MyCircuit with Marlin and with Groth16.
+files, proving MyCircuit with Marlin and with Groth16.  Phase 9 plays the
+werewolf game at 3 players (`zkmpc_tpu_torch/cli/werewolf_game.py`): its
+six modes with Groth16 (SHE preprocessing at 1,024 slots, 251-bit ElGamal
+randomness), ``vote`` and ``role_assignment`` with Marlin under one
+universal SRS, KeyPublicizeCircuit(3) and DivinationCircuit(3) at the
+reference's parameters proved with Groth16, and a scripted CLI game with
+proofs (`werewolf_cli.run_scripted`).
 
     python3 chip_smoke.py              # needs one CUDA card
     python3 chip_smoke.py --gates 64   # a quicker main-path run
@@ -966,8 +974,7 @@ def time_bit_rand_sqrt(dev, n_parties=3, shape=(16, 253)):
 
     gen = torch.Generator(dev).manual_seed(78)
     ctx = MpcContext(StackedTransport(n_parties, dev), "spdz", DummyTripleSource(gen),
-                     alpha_share=R.uniform_fp(gen, FR, (n_parties,), device=dev),
-                     mac_check_generator=gen)
+                     alpha_share=R.uniform_fp(gen, FR, (n_parties,), device=dev))
     with mpc_scope(ctx):
         B.bit_rand_sqrt(gen, FR, shape)                        # warm-up
         torch.cuda.synchronize()
@@ -1015,8 +1022,7 @@ def spdz_faults_caught(dev, n_parties=3):
 
     gen = torch.Generator(dev).manual_seed(77)
     ctx = MpcContext(StackedTransport(n_parties, dev), "spdz",
-                     alpha_share=R.uniform_fp(gen, FR, (n_parties,), device=dev),
-                     mac_check_generator=gen)
+                     alpha_share=R.uniform_fp(gen, FR, (n_parties,), device=dev))
     party1 = torch.arange(n_parties, device=dev) == 1
 
     def fails(check, what):
@@ -1053,6 +1059,7 @@ def spdz_faults_caught(dev, n_parties=3):
         if opened[0].to_affine_ints() != [SC.g1_mul(SC.G1_GEN, 2), SC.G1_GEN]:
             raise AssertionError("phase 7: the cancelling tamper did not open to (2G, G)")
         fails(ctx.assert_group_macs, "+G and -G on two shares of one opening")
+        seed_predicted_tamper(dev, n_parties, ctx, fails)
         try:
             pt + G.MpcSWPoint(pt.point, SHARED)
         except ValueError:
@@ -1060,9 +1067,53 @@ def spdz_faults_caught(dev, n_parties=3):
         else:
             raise AssertionError("phase 7: a MAC'd plus a MAC-less group share did not raise")
     log("phase 7 faults on the card: honest field and group openings pass; party 1's "
-        "+1 on a field share, +G on a group share, and +G and -G on two group shares of "
-        "one opening (errors that cancel in a plain sum) fail their MAC checks; a MAC'd "
-        "plus a MAC-less group share raises ValueError")
+        "+1 on a field share, +G on a group share, +G and -G on two group shares of "
+        "one opening (errors that cancel in a plain sum), and field and group errors "
+        "weighted to cancel under the rhos the public seed would predict fail their MAC "
+        "checks; a MAC'd plus a MAC-less group share raises ValueError")
+
+
+def seed_predicted_tamper(dev, n_parties, ctx, fails, seed=11):
+    """Party 1 weights its errors to cancel under the rhos that a generator
+    seeded from the public run seed, ((seed + 0x517D) << 1) | 1, draws
+    first on the card: field shares of two openings get e_1 = rho_2 and
+    e_2 = -rho_1; two group shares of one opening get rho_2*G and
+    -rho_1*G.  Both checks draw their rhos from the parties' coin toss
+    after the openings and must fail."""
+    import numpy as np
+    import torch
+    from zkmpc_tpu_torch.mpc import group as G
+    from zkmpc_tpu_torch.mpc import rand as R
+    from zkmpc_tpu_torch.mpc.share import SHARED, MpcFp, king_share
+    from zkmpc_tpu_torch.ops.curve import SWPoint, sw_add_complete
+    from zkmpc_tpu_torch.ops.limbs import FR, FpArray
+    from zkmpc_tpu_torch.ops.msm import _bcast_sw
+    from zkmpc_tpu_torch.spec import curves as SC
+
+    def predicted(shapes):
+        """The seed-derived generator's draws, one a shape, in order."""
+        gen = torch.Generator(dev).manual_seed(((seed + 0x517D) << 1) | 1)
+        return [[int(v) for v in R.uniform_fp(gen, FR, shape, device=dev).to_ints()]
+                for shape in shapes]
+    p = FR.p
+    (r1,), (r2,) = predicted([(1,), (1,)])
+    for k, err in enumerate((r2, -r1)):
+        x = king_share(FpArray.from_int(FR, np.asarray([5 + k], dtype=object), device=dev),
+                       torch.Generator(dev).manual_seed(3 + k))
+        bump = FpArray.from_int(FR, np.asarray([[err % p if i == 1 else 0]
+                                                for i in range(n_parties)], dtype=object),
+                                device=dev)
+        MpcFp(x.value + bump, SHARED, x.mac).reveal()
+    fails(ctx.assert_field_macs, "field shares tampered with seed-predicted weights")
+    ((g1, g2),) = predicted([(2,)])
+    pts = G.with_mac_from_public(SWPoint.g1_from_affine_ints(
+        [SC.G1_GEN, SC.g1_mul(SC.G1_GEN, 2)], dev))
+    errs = SWPoint.g1_from_affine_ints([SC.g1_mul(SC.G1_GEN, g2), SC.g1_mul(SC.G1_GEN, -g1 % p)],
+                                       dev)
+    moved = sw_add_complete(pts.point, _bcast_sw(errs, pts.point.shape))
+    party1 = (torch.arange(n_parties, device=dev) == 1).reshape(-1, 1).expand(-1, 2)
+    G.MpcSWPoint(SWPoint.select(party1, moved, pts.point), SHARED, pts.mac).reveal()
+    fails(ctx.assert_group_macs, "group shares tampered with seed-predicted weights")
 
 
 def _marlin_report(what, report, launches, peak, wall):
@@ -1169,6 +1220,242 @@ def phase_marlin(slots=1024, n_parties=3):
     return total
 
 
+def _kernel_counts(launches):
+    """K1 launches by width, K2 and K3, for a log line."""
+    return ("K1 by width " + ", ".join(f"{k[len('mont_mul_'):]} {v}" for k, v in
+                                       sorted(launches.items()) if k.startswith("mont_mul_n"))
+            + f"; K2 {launches.get('point_add_g1', 0)}, K3 {launches.get('point_add_g2', 0)}")
+
+
+def _prove_line(report, peak, launches):
+    setup = (f"index {report['index_s']:.2f} s" if "index_s" in report
+             else f"setup {report['setup_s']:.2f} s")
+    return (f"{report['constraints']} constraints, domain {report['domain_n']}; synthesis "
+            f"{report['synthesis_s']:.2f} s ({report['synthesis_openings']} openings), {setup}, "
+            f"prove {report['prove_s']:.2f} s ({report['prove_openings']} openings), verify "
+            f"{report['verify_s']:.2f} s; peak device memory {peak} B "
+            f"({peak / 2**30:.2f} GiB); {_kernel_counts(launches)}")
+
+
+#: the reference's constraint counts of the full-width werewolf circuits
+#: at 3 players (`tests/test_constraint_parity.py`)
+REFERENCE_COUNTS = {"KeyPublicizeCircuit(3)": 15266, "DivinationCircuit(3)": 22249}
+
+
+def reference_circuit(name, dev, generator):
+    """KeyPublicizeCircuit(3) or DivinationCircuit(3) at the reference's
+    parameters, built as `tests/test_constraint_parity.py` builds them
+    (per-input Pedersen commitment checks of 253 message and 253
+    randomness bits; 251 ElGamal randomness bits) but with every wire
+    dealt by the leader (`king_share`), under the ambient MPC scope."""
+    import numpy as np
+    from zkmpc_tpu_torch.circuits import werewolf as WC
+    from zkmpc_tpu_torch.crypto import elgamal as EG
+    from zkmpc_tpu_torch.crypto import pedersen as PD
+    from zkmpc_tpu_torch.mpc.share import king_share
+    from zkmpc_tpu_torch.ops.limbs import FR, FpArray
+    from zkmpc_tpu_torch.snark.r1cs import ConstraintSystem
+    from zkmpc_tpu_torch.spec import curves as SC
+    nb = FR.p.bit_length()
+
+    def deal(vals):
+        return king_share(FpArray.from_int(FR, np.asarray(vals, dtype=object), device=dev),
+                          generator)
+
+    def scalars(vals):
+        x = deal(vals)
+        return [x[i] for i in range(len(vals))]
+
+    def bits(v, n=nb):
+        return deal([(v >> i) & 1 for i in range(n)])
+    pp = PD.PedersenParams.sample(1)
+    cs = ConstraintSystem(FR)
+    if name == "KeyPublicizeCircuit(3)":
+        xs, ys = [5, 0, 0], [6, 0, 0]
+        rs = list(range(10, 16))
+        WC.key_publicize_circuit(
+            cs, scalars(xs), scalars(ys), scalars([1, 0, 0]), 5, 6, pedersen_pp=pp,
+            xy_randomness=[bits(r) for r in rs],
+            xy_commitments=[PD.commit_public_ints(pp, v, r) for v, r in zip(xs + ys, rs)],
+            generator=generator, com_nbits=None)
+    else:
+        keys = EG.keygen(3)
+        r_int = 0x5A5A5
+        c1, c2 = EG.encrypt_ints(keys.pk, SC.TE_GEN, r_int)
+        flags = [0, 1, 0]
+        rs = list(range(30, 36))
+        WC.divination_circuit(
+            cs, scalars(flags), scalars(flags), bits(r_int, 251), keys.pk, c1, c2, generator,
+            pedersen_pp=pp, wire_randomness=[bits(r) for r in rs],
+            wire_commitments=[PD.commit_public_ints(pp, v, r)
+                              for v, r in zip(flags + flags, rs)], com_nbits=None)
+    return cs
+
+
+def phase_werewolf(slots=1024, n_parties=3):
+    """Phase 9: the werewolf game at `n_parties` players on the stacked
+    transport.  (a) The game binary's six modes with Groth16 in one fresh
+    game directory: ``init`` (roles, shuffles and SHE preprocessing at
+    `slots` slots), ``preprocessing``, ``role_assignment``, ``night
+    --rand-bits 251 --target 1``, ``vote --votes 2,2,0`` and
+    ``judgment``; every proof verifies and a wrong instance is rejected,
+    the seer's decryption is the dealt role, and the vote's and judgment's
+    results are what the dealt roles and the votes imply.  (b) ``vote`` and
+    ``role_assignment`` under ``--zksnark marlin`` against ONE universal SRS
+    file, set up by the first at the smallest degree that holds
+    role_assignment.  (c) KeyPublicizeCircuit(3) and DivinationCircuit(3) at
+    the reference's parameters (`reference_circuit`) proved with Groth16
+    and verified, a wrong instance rejected.  Then a scripted CLI game
+    (`werewolf_cli.run_scripted`) with ``prove=True``: one divination and
+    one vote proof.  The kernel counts are reset just before each run and
+    read just after."""
+    import json
+    import tempfile
+
+    import torch
+    from zkmpc_tpu_torch.cli import werewolf_cli as CLI
+    from zkmpc_tpu_torch.cli import werewolf_game as WG
+    from zkmpc_tpu_torch.mpc.share import MpcContext, mpc_scope
+    from zkmpc_tpu_torch.ops import build as K
+    from zkmpc_tpu_torch.ops.limbs import FR
+    from zkmpc_tpu_torch.parallel.transport import StackedTransport
+    from zkmpc_tpu_torch.snark import groth16
+    dev = torch.device(DEVICE)
+    total = {}
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launches()
+        t0 = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = dict(K.LAUNCHES)
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        return out, launches, torch.cuda.max_memory_allocated(), wall
+
+    with tempfile.TemporaryDirectory() as gamedir:
+        def load(name):
+            with open(os.path.join(gamedir, name)) as f:
+                return json.load(f)
+        # (a) the six modes, Groth16
+        for mode, extra in (("init", ["--slots", str(slots)]), ("preprocessing", []),
+                            ("role_assignment", []),
+                            ("night", ["--rand-bits", "251", "--target", "1"]),
+                            ("vote", ["--votes", "2,2,0"]), ("judgment", [])):
+            args = WG.parse_args([mode, "--gamedir", gamedir, "--players", str(n_parties),
+                                  "--device", DEVICE] + extra)
+            report = {}
+            ok, launches, peak, wall = counted(lambda: WG.MODES[mode](args, report))
+            if not ok:
+                raise AssertionError(f"phase 9 {mode}: failed ({report})")
+            if mode == "init":
+                log(f"phase 9 werewolf_game init ({slots} slots, {n_parties} players): roles "
+                    f"dealt, SHE preprocessing {report['preprocessing_s']:.2f} s; wall-clock "
+                    f"{wall:.2f} s; {_kernel_counts(launches)}")
+                continue
+            if min(launches.get("mont_mul", 0), launches.get("point_add_g1", 0),
+                   launches.get("point_add_g2", 0)) <= 0:
+                raise AssertionError(f"phase 9 {mode}: K1, K2 or K3 never ran ({launches})")
+            log(f"phase 9 werewolf_game {mode} (groth16): the proof verifies, a wrong instance "
+                f"is rejected; {_prove_line(report, peak, launches)}; wall-clock {wall:.2f} s")
+        roles = [load(f"role_{i}.json")["role"] for i in range(n_parties)]
+        div = load("divination.json")
+        if div["is_werewolf"] != (roles[1] == "Werewolf"):
+            raise AssertionError(f"phase 9: the seer decrypted {div}, the dealt roles are {roles}")
+        tally = [[2, 2, 0].count(i) for i in range(n_parties)]
+        if load("vote.json")["most_voted"] != max(range(n_parties),
+                                                  key=lambda i: (tally[i], -i)):
+            raise AssertionError(f"phase 9: vote.json {load('vote.json')} for tally {tally}")
+        wolves = roles.count("Werewolf")
+        state = 2 if wolves == 0 else (3 if wolves < n_parties - wolves else 1)
+        if load("judgment.json")["state"] != state:
+            raise AssertionError(f"phase 9: judgment.json {load('judgment.json')}, expected {state}")
+        log(f"phase 9 game results: roles {roles}; the seer's decryption of player 1 "
+            f"({div['is_werewolf']}) is the dealt role; most voted {load('vote.json')['most_voted']} "
+            f"and game state {state} ({WG.GAME_STATES[state]}) as the roles and votes imply")
+        # (b) vote and role_assignment under one universal Marlin SRS
+        srs_path = os.path.join(gamedir, "universal_srs.json")
+        stamp = None
+        for mode, extra in (("role_assignment", []), ("vote", ["--votes", "2,2,0"])):
+            args = WG.parse_args([mode, "--gamedir", gamedir, "--players", str(n_parties),
+                                  "--device", DEVICE, "--zksnark", "marlin"] + extra)
+            report = {}
+            ok, launches, peak, wall = counted(lambda: WG.MODES[mode](args, report))
+            if not ok or min(launches.get("mont_mul", 0), launches.get("point_add_g1", 0)) <= 0:
+                raise AssertionError(f"phase 9 {mode} (marlin): failed or K1/K2 never ran "
+                                     f"({report}, {launches})")
+            if stamp is not None and os.path.getmtime(srs_path) != stamp:
+                raise AssertionError("phase 9: the second Marlin phase set up its own SRS")
+            stamp = os.path.getmtime(srs_path)
+            log(f"phase 9 werewolf_game {mode} (marlin, universal SRS degree "
+                f"{report['srs_degree']}, this circuit needs {report['srs_degree_needed']}"
+                + (f", set up in {report['srs_setup_s']:.2f} s" if "srs_setup_s" in report
+                   else ", the same file reloaded") + f"): the proof verifies, a wrong instance "
+                f"is rejected; {_prove_line(report, peak, launches)}; wall-clock {wall:.2f} s")
+    # (c) the reference-parameter circuits, proved with Groth16
+    for name, want in REFERENCE_COUNTS.items():
+        gen = torch.Generator(dev).manual_seed(91)
+        report = {}
+
+        def run():
+            t = StackedTransport(n_parties, dev)
+            with mpc_scope(MpcContext(t, "semi")):
+                t0 = time.time()
+                cs = reference_circuit(name, dev, gen)
+                torch.cuda.synchronize()
+                report.update(synthesis_s=time.time() - t0, synthesis_openings=t.stats.rounds,
+                              constraints=len(cs.constraints))
+                if not cs.is_satisfied_ints():
+                    raise AssertionError(f"phase 9 {name}: unsatisfied")
+                t0 = time.time()
+                dpk = groth16.device_setup(cs, seed=5, device=dev)
+                torch.cuda.synchronize()
+                report["setup_s"] = time.time() - t0
+                rounds, t0 = t.stats.rounds, time.time()
+                proof = groth16.proof_to_ints(groth16.prove(dpk, cs, gen))
+                report.update(prove_s=time.time() - t0, prove_openings=t.stats.rounds - rounds,
+                              domain_n=dpk.pk.domain_n)
+                inst = cs.instance_ints()
+                t0 = time.time()
+                ok = groth16.verify(dpk.pk.vk, inst, proof)
+                report["verify_s"] = time.time() - t0
+                bad = [inst[0], (inst[1] + 1) % FR.p] + inst[2:]
+                return ok and not groth16.verify(dpk.pk.vk, bad, proof)
+        ok, launches, peak, wall = counted(run)
+        if not ok or min(launches.get(k, 0) for k in ("mont_mul", "point_add_g1",
+                                                      "point_add_g2")) <= 0:
+            raise AssertionError(f"phase 9 {name}: the proof failed or a kernel never ran "
+                                 f"({report}, {launches})")
+        log(f"phase 9 {name} at the reference's parameters, wires dealt by the leader: "
+            f"{report['constraints']} constraints (the reference: {want}, ratio "
+            f"{report['constraints'] / want:.3f}); the Groth16 proof verifies, a wrong instance "
+            f"is rejected; {_prove_line(report, peak, launches)}; wall-clock {wall:.2f} s")
+    # the CLI game with proofs: night (no kill, the seer divines the first
+    # villager) and one vote that eliminates the werewolf
+    names = ["a", "b", "c"]
+    roles = [p.role for p in CLI.Game(names, seed=0).players]
+    wolf = roles.index("Werewolf")
+    seen = roles.index("Villager")
+    script = f"divines={seen};votes={','.join([str(wolf)] * len(names))}"
+    game, launches, peak, wall = counted(lambda: CLI.run_scripted(names, script, seed=0,
+                                                                  prove=True, device=dev))
+    if game.phase != "Over" or game._judge() != 2 or len(game.proofs) != 2 or \
+            not all(r["verified"] and r["wrong_instance_rejected"] for r in game.proofs):
+        raise AssertionError(f"phase 9 werewolf_cli: {game.phase}, {game.log}, {game.proofs}")
+    for r in game.proofs:
+        log(f"phase 9 werewolf_cli {r['what']}: {r['constraints']} constraints, domain "
+            f"{r['domain_n']}; synthesis {r['synthesis_s']:.2f} s, setup {r['setup_s']:.2f} s, "
+            f"prove {r['prove_s']:.2f} s ({r['prove_openings']} openings), verify "
+            f"{r['verify_s']:.2f} s")
+    log(f"phase 9 werewolf_cli run_scripted({names}, {script!r}, prove=True): "
+        f"{' / '.join(game.log)}; wall-clock {wall:.2f} s; peak device memory {peak} B "
+        f"({peak / 2**30:.2f} GiB); {_kernel_counts(launches)}")
+    return total
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--gates", type=int, default=16381,
@@ -1191,7 +1478,8 @@ def main(argv=None):
     main_bin, semi = phase_main()
     spdz = phase_spdz(semi)
     marlin = phase_marlin()
-    paths = (wide, ped, main_bin, spdz, marlin)
+    werewolf = phase_werewolf()
+    paths = (wide, ped, main_bin, spdz, marlin, werewolf)
     launches = {k: sum(p.get(k, 0) for p in paths) for k in set().union(*paths)}
     bad = sorted(m for m in sys.modules if m in ("jax", "zkmpc_tpu")
                  or m.startswith(("jax.", "jaxlib", "zkmpc_tpu.")))

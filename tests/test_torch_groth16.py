@@ -18,6 +18,7 @@ from zkmpc_tpu.snark import qap as JQ
 from zkmpc_tpu_torch.ops.limbs import FR, FpArray
 from zkmpc_tpu_torch.snark import driver, groth16
 from zkmpc_tpu_torch.snark import qap as TQ
+from zkmpc_tpu_torch.snark.r1cs import ConstraintSystem
 
 torch.set_num_threads(1)
 
@@ -95,3 +96,14 @@ def test_proving_key_from_plain_fields():
     assert pk.num_witness == 3 * MK.N_GATES
     assert len(pk.a_query) == pk.num_instance + pk.num_witness
     assert isinstance(pk.vk.beta_g2[0], tuple)
+
+
+def test_prove_needs_a_generator_or_r_and_s():
+    """No blinding is drawn from a fixed seed: a prove given neither a
+    generator nor both injected r and s shares raises before any work."""
+    fx = MK.load(np.load(MK.PATH))
+    dpk = driver.dpk_from_host(fx["doc"], CPU)
+    r = FpArray(torch.as_tensor(fx["r"][0].astype(np.int64)), FR, fx["r"][1])
+    for kw in ({}, {"r": r}, {"s": r}):
+        with pytest.raises(ValueError, match="generator or injected r and s"):
+            groth16.prove(dpk, ConstraintSystem(FR), **kw)

@@ -281,7 +281,7 @@ def test_spdz_prove_on_the_cpu(fx, proved):
     gen = torch.Generator().manual_seed(9)
     alpha = R.uniform_fp(gen, FR, (MF.N_PARTIES,), device=CPU)
     ctx = MpcContext(StackedTransport(MF.N_PARTIES, CPU), "spdz", DummyTripleSource(gen),
-                     alpha_share=alpha, mac_check_generator=gen)
+                     alpha_share=alpha)
     with mpc_scope(ctx):
         cs = ConstraintSystem(FR)
         _build(cs, generator=gen)

@@ -23,8 +23,12 @@ which a `slow` test regenerates.
   across two openings); a MAC'd plus a MAC-less share raises.
 - The 4-gate wide-mul prove under SPDZ gives the JAX package's proof,
   which verifies, with both MAC queues non-empty and passing.
+- Tampers weighted to cancel under the rhos that the public run seed
+  would predict fail both checks, whose rhos come from the parties'
+  commit-then-open coin toss after the openings.
 """
 
+import hashlib
 import json
 
 import numpy as np
@@ -35,8 +39,10 @@ from fixtures import make_torch_she_fixture as SF
 from fixtures import make_torch_slice_fixture as MK
 from fixtures import make_torch_spdz_fixture as ZF
 from torch_parity import CPU
+from zkmpc_tpu_torch import config as CFG
 from zkmpc_tpu_torch.mpc import bits as B
 from zkmpc_tpu_torch.mpc import group as G
+from zkmpc_tpu_torch.mpc import rand as R
 from zkmpc_tpu_torch.mpc import share as S
 from zkmpc_tpu_torch.mpc.group import MpcSWPoint
 from zkmpc_tpu_torch.mpc.share import SHARED, MpcContext, MpcFp, king_share, mpc_scope
@@ -44,6 +50,7 @@ from zkmpc_tpu_torch.ops.curve import SWPoint, sw_add_complete, sw_neg
 from zkmpc_tpu_torch.ops.limbs import FR, FpArray
 from zkmpc_tpu_torch.ops.msm import _bcast_sw
 from zkmpc_tpu_torch.parallel.transport import StackedTransport
+from zkmpc_tpu_torch.she import preprocessing as PP
 from zkmpc_tpu_torch.snark import driver, groth16
 from zkmpc_tpu_torch.snark.r1cs import ConstraintSystem
 from zkmpc_tpu_torch.spec import curves as SC
@@ -122,7 +129,7 @@ def test_field_wires_bits_and_residues_match_reference():
         _check(fx, ctx, src)
     assert ctx.mac_residue_count == len(fx["rho"])
     # a party that adds 1 to its share but keeps its MAC share is caught
-    ctx = _ctx(src, alphas, mac_check_generator=torch.Generator().manual_seed(2))
+    ctx = _ctx(src, alphas)
     with mpc_scope(ctx):
         x = king_share(_fr([5]), torch.Generator().manual_seed(3))
         assert _opened(_tamper(x)) == [6]
@@ -148,7 +155,7 @@ def _group_cases(doc, gen):
     alphas = doc["alphas"]
     alpha = sum(alphas) % P
     src = ZF.FixedSource("zkmpc_tpu_torch", alphas, ZF.SRC_SEED + 2, device=CPU)
-    ctx = _ctx(src, alphas, mac_check_generator=gen)
+    ctx = _ctx(src, alphas)
     with mpc_scope(ctx):
         g = SWPoint.g1_from_affine_ints([SC.G1_GEN], CPU)[0]
         pt = G.with_mac_from_public(g)
@@ -204,7 +211,7 @@ def _cancelling_cases(doc, gen):
     fail."""
     alphas = doc["alphas"]
     src = ZF.FixedSource("zkmpc_tpu_torch", alphas, ZF.SRC_SEED + 3, device=CPU)
-    ctx = _ctx(src, alphas, mac_check_generator=gen)
+    ctx = _ctx(src, alphas)
     with mpc_scope(ctx):
         g = SWPoint.g1_from_affine_ints([SC.G1_GEN], CPU)[0]
         pts = G.with_mac_from_public(SWPoint.g1_from_affine_ints(
@@ -253,12 +260,14 @@ def _spdz_prove(doc, gen):
     mats = groth16.device_matrices_from_pk(dpk.pk, CPU)
     src = ZF.FixedSource("zkmpc_tpu_torch", alphas, ZF.SRC_SEED + 1, device=CPU,
                          fixed_r=ZF.slice_r_s())
-    ctx = _ctx(src, alphas, mac_check_generator=gen)
+    ctx = _ctx(src, alphas)
     with mpc_scope(ctx):
         cs = ConstraintSystem(FR)
         driver.build_wide_mul_circuit(cs, src.share([i + 2 for i in range(MK.N_GATES)]),
                                       src.share([i + 5 for i in range(MK.N_GATES)]))
-        proof = groth16.proof_to_ints(groth16.prove(dpk, cs, None, matrices=mats))
+        # under SPDZ r and s are the source's <r> shares (the slice's);
+        # the generator is required but draws nothing
+        proof = groth16.proof_to_ints(groth16.prove(dpk, cs, gen, matrices=mats))
         counts = (ctx.mac_residue_count, ctx.group_mac_residue_count)
         assert ctx.assert_field_macs(require_nonempty=True)
         assert ctx.assert_group_macs(require_nonempty=True)
@@ -277,6 +286,66 @@ def test_group_macs_and_spdz_prove_match_reference(case):
     doc = ZF.load(np.load(ZF.PATH))["json"]
     run = {"group": _group_cases, "cancelling": _cancelling_cases, "prove": _spdz_prove}[case]
     run(doc, torch.Generator().manual_seed(4))
+
+
+def _config_context(seed):
+    """The SPDZ context `config.build_mpc_context` makes for a run with
+    ``--seed seed``, over the SHE fixture's dealer."""
+    dealer = PP.dealer_from_host(SF.dealer_doc(SF.load(np.load(SF.PATH))), CPU)
+    return CFG.build_mpc_context(CFG.RunConfig(backend="spdz", seed=seed),
+                                 StackedTransport(ZF.N_PARTIES, CPU), dealer=dealer)
+
+
+@pytest.mark.parametrize("case", ["field", "group"])
+def test_seed_predicted_rho_tamper_is_caught(case):
+    """Party 1 tampers two openings with errors weighted to cancel under
+    the rhos the public seed predicts: e_1 = rho_2 and e_2 = -rho_1 (on
+    field shares), rho_2*G and -rho_1*G (on two group shares of one
+    opening).  Under seed-derived weights the weighted residue is 0 and the
+    check passes; the rhos of the coin toss are drawn after the openings,
+    so the check fails."""
+    seed = 11
+    ctx = _config_context(seed)
+    party1 = torch.arange(ZF.N_PARTIES) == 1
+    with mpc_scope(ctx):
+        if case == "field":
+            # each one-element opening drew one rho: rho_1 then rho_2
+            gen = torch.Generator(CPU).manual_seed(((seed + 0x517D) << 1) | 1)
+            rho = [int(R.uniform_fp(gen, FR, (1,), device=CPU).to_ints()[0]) for _ in range(2)]
+            for k, err in enumerate((rho[1], -rho[0])):
+                x = king_share(_fr([5 + k]), torch.Generator().manual_seed(3 + k))
+                bump = np.zeros((ZF.N_PARTIES, 1), dtype=object)
+                bump[1] = err % P
+                assert _opened(MpcFp(x.value + _fr(bump), SHARED, x.mac)) == [(5 + k + err) % P]
+            with pytest.raises(AssertionError, match="field MAC"):
+                ctx.assert_field_macs(require_nonempty=True)
+        else:
+            # one opening of two points: one rho per point, [rho_1, rho_2]
+            gen = torch.Generator(CPU).manual_seed(((seed + 0x517D) << 1) | 1)
+            rho = [int(v) for v in R.uniform_fp(gen, FR, (2,), device=CPU).to_ints()]
+            pts = G.with_mac_from_public(SWPoint.g1_from_affine_ints([_g1(1), _g1(2)], CPU))
+            errs = SWPoint.g1_from_affine_ints([_g1(rho[1]), _g1(-rho[0])], CPU)
+            moved = sw_add_complete(pts.point, _bcast_sw(errs, pts.point.shape))
+            mask = party1.reshape(-1, 1).expand(ZF.N_PARTIES, 2)
+            opened = MpcSWPoint(SWPoint.select(mask, moved, pts.point), SHARED,
+                                pts.mac).reveal()[0].to_affine_ints()
+            assert opened == [_g1(1 + rho[1]), _g1(2 - rho[0])]
+            with pytest.raises(AssertionError, match="group MAC"):
+                ctx.assert_group_macs(require_nonempty=True)
+
+
+def test_coin_toss_commits_then_opens():
+    """The MAC checks' coin toss: one round of commitments and one of
+    openings; injected seeds give the hash of their concatenation; a party
+    whose opening does not match its commitment is caught; each toss
+    draws fresh private seeds."""
+    t = StackedTransport(ZF.N_PARTIES, CPU)
+    seeds = [bytes([i]) * 32 for i in range(ZF.N_PARTIES)]
+    want = int.from_bytes(hashlib.sha256(b"".join(seeds)).digest()[:8], "little") >> 1
+    assert R.coin_toss(t, seeds) == want and t.stats.rounds == 2
+    with pytest.raises(AssertionError, match="party 2's opening"):
+        R.coin_toss(t, seeds, openings=seeds[:2] + [bytes(32)])
+    assert R.coin_toss(t) != R.coin_toss(t)
 
 
 @pytest.mark.slow

@@ -11,6 +11,8 @@ R1CS matrices are the reference's.
 
 from __future__ import annotations
 
+import numpy as np
+
 from .. import params
 from ..mpc import bits as B
 from ..mpc.share import PUBLIC, MpcFp, beaver_inv
@@ -105,9 +107,16 @@ class TEAffineVar:
 
 
 def _inv_wire(v: FpVar) -> MpcFp:
-    if v.value.visibility == PUBLIC:
-        return MpcFp(v.value.value.inv(), PUBLIC)
-    return beaver_inv(v.value)
+    """The inverse of a wire's value (0 for 0): a public value is inverted
+    on the host, one round trip instead of the Montgomery products of
+    x^(p-2) (the same value); a shared one by a Beaver inverse."""
+    val = v.value
+    if val.visibility == PUBLIC:
+        p = val.spec.p
+        ints = np.asarray(val.value.to_ints()[0], dtype=object)      # party 0's copy
+        return MpcFp.const(val.spec, np.vectorize(
+            lambda x: pow(int(x), -1, p) if int(x) % p else 0, otypes=[object])(ints))
+    return beaver_inv(val)
 
 
 def _linear_leaf(cs, bit: Boolean, xy):
@@ -121,16 +130,17 @@ def _linear_leaf(cs, bit: Boolean, xy):
 
 
 def pedersen_com_circuit(cs: ConstraintSystem, x: FpVar, r_bools: list,
-                         commitment_xy, pp, generator, nbits: int | None = None
-                         ) -> None:
+                         commitment_xy, pp, generator, nbits: int | None = None,
+                         m_bits_val: MpcFp | None = None) -> None:
     """The PedersenComCircuit: enforce that commit(x, r) equals the public
     commitment point.
 
     x: allocated FpVar (shared or public); r_bools: randomness-bit Booleans
     (an empty list is the zero randomness); commitment_xy: public affine
-    point, allocated as two instance variables.
+    point, allocated as two instance variables; m_bits_val: x's full-width
+    bit decomposition when a batched run already made it (`FpVar.to_bits`).
     """
-    m_bits = x.to_bits(generator, nbits)
+    m_bits = x.to_bits(generator, nbits, bits_val=m_bits_val)
     com = pedersen_commit_gadget(cs, m_bits, r_bools, pp)
     cx = FpVar.new_input(cs, MpcFp.const(cs.spec, int(commitment_xy[0])))
     cy = FpVar.new_input(cs, MpcFp.const(cs.spec, int(commitment_xy[1])))

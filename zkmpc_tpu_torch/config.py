@@ -59,11 +59,11 @@ def build_mpc_context(cfg: RunConfig, transport, dealer=None, generator=None,
     semi: Beaver triples from a preprocessing dealer's `SheTripleSource`
     when a dealer is given, else the dummy source.  spdz: needs a dealer
     after ``initialize`` (the alpha MAC-key shares and the SHE pools); the
-    source serves authenticated triples, inverse pairs and <r> shares, and
-    the field MAC check draws its weights from a generator seeded from the
-    run's seed.  The source draws from ``generator``, by default one seeded
-    from ``cfg.seed`` on the transport's device, ``ciphertexts``
-    ciphertexts a triple batch."""
+    source serves authenticated triples, inverse pairs and <r> shares; the
+    MAC checks draw their weights from the parties' coin toss at check
+    time, never from the run's seed.  The source draws from ``generator``,
+    by default one seeded from ``cfg.seed`` on the transport's device,
+    ``ciphertexts`` ciphertexts a triple batch."""
     from .mpc.share import MpcContext
 
     def source():
@@ -78,7 +78,5 @@ def build_mpc_context(cfg: RunConfig, transport, dealer=None, generator=None,
                           triple_source=source() if dealer is not None else None)
     assert dealer is not None and dealer.alpha_shares is not None, \
         "the spdz backend needs preprocessing (run initialize first)"
-    check = torch.Generator(transport.device).manual_seed(((cfg.seed + 0x517D) << 1) | 1)
     return MpcContext(transport, backend="spdz", triple_source=source(),
-                      alpha_share=dealer.alpha_shares.to(transport.device),
-                      mac_check_generator=check)
+                      alpha_share=dealer.alpha_shares.to(transport.device))

@@ -4,10 +4,15 @@ Port of ``zkmpc_tpu/mpc/rand.py``.  The bits come from an explicit
 ``torch.Generator`` (JAX's threefry bits cannot be reproduced in torch), or
 are injected: ``uniform_fp(..., bits=(hi, lo))`` takes the two raw 32-bit
 draws ``[..., nlimbs]`` the reference's ``_raw_half_range`` would draw, so
-a test gets the reference's field elements bit for bit.
+a test gets the reference's field elements bit for bit.  `coin_toss` is
+the parties' commit-then-open toss for public randomness no party can
+predict (the MAC checks' weights).
 """
 
 from __future__ import annotations
+
+import hashlib
+import secrets
 
 import torch
 
@@ -47,3 +52,37 @@ def uniform_fp(generator, spec: FieldSpec, shape=(), device="cuda",
     kconst = FpArray.from_int(spec, pow(2, W * spec.nlimbs - 1, spec.p),
                               device=device)
     return hi * kconst.broadcast_to(hi.shape) + lo
+
+
+def _commitment(party: int, seed: bytes) -> bytes:
+    return hashlib.sha256(bytes([party]) + seed).digest()
+
+
+def coin_toss(transport, seeds=None, openings=None) -> int:
+    """A public 63-bit seed no party can predict or bias alone: a
+    commit-then-open coin toss.  Each party draws a private 32-byte seed
+    from its own entropy source (``seeds``: injected, one per party) and
+    broadcasts its hash commitment; once every commitment is in, each
+    opens its seed (``openings``: what each party opens, by default its
+    seed).  Every party checks every opening against its commitment, and
+    the result is a hash of all the seeds.  One round of commitments and
+    one of openings through the transport, so its `CommStats` counts
+    them."""
+    n = transport.n_parties
+    if seeds is None:
+        seeds = [secrets.token_bytes(32) for _ in range(n)]
+    openings = seeds if openings is None else openings
+
+    def tensor(rows):
+        return torch.tensor([list(r) for r in rows], dtype=torch.uint8,
+                            device=transport.device)
+    seen = transport.all_gather(tensor(_commitment(i, s) for i, s in enumerate(seeds)))
+    opened = transport.all_gather(tensor(openings)).cpu().numpy()      # [holder, party, 32]
+    seen = seen.cpu().numpy()
+    for holder in range(n):
+        for i in range(n):
+            if _commitment(i, opened[holder, i].tobytes()) != seen[holder, i].tobytes():
+                raise AssertionError(f"coin toss: party {i}'s opening does not match "
+                                     f"its commitment")
+    digest = hashlib.sha256(b"".join(opened[0, i].tobytes() for i in range(n))).digest()
+    return int.from_bytes(digest[:8], "little") >> 1

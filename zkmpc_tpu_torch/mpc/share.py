@@ -27,21 +27,24 @@ from . import rand as R
 PUBLIC = "public"
 SHARED = "shared"
 
+#: queued field-MAC residue elements (per party) at which one coin toss
+#: weighs and folds the queue
+FIELD_QUEUE_ELEMS = 1 << 18
+
 
 class MpcContext:
     """Ambient MPC execution state: transport, backend, triple source and,
     under ``backend="spdz"``, the MAC key share and the MAC-check queues.
 
-    ``alpha_share``: FpArray [P], each party's share of the MAC key.  The
-    field check weighs each opening's residues by random rho drawn from
-    ``mac_check_generator`` (none: weight 1); the group check weighs each
-    opened point by a rho from it and needs it; ``rho_bits``: optional
-    injected raw draws, one (hi, lo) pair per opening in order (see
-    `rand.uniform_fp`), in place of the generator's."""
+    ``alpha_share``: FpArray [P], each party's share of the MAC key.  Both
+    MAC checks weigh what they check by public random rhos that the parties
+    draw only after the openings, from a commit-then-open coin toss
+    (`rand.coin_toss`), so no party can predict them.  ``rho_bits``:
+    optional injected raw draws of the field check, one (hi, lo) pair per
+    opening in order (see `rand.uniform_fp`), in place of the toss."""
 
     def __init__(self, transport: T.Transport, backend: str = "semi",
-                 triple_source=None, alpha_share: FpArray | None = None,
-                 mac_check_generator=None, rho_bits=None):
+                 triple_source=None, alpha_share: FpArray | None = None, rho_bits=None):
         if backend not in ("semi", "spdz"):
             raise ValueError(f"unknown MPC backend {backend!r}")
         if backend == "spdz" and alpha_share is None:
@@ -50,15 +53,23 @@ class MpcContext:
         self.backend = backend
         self.triple_source = triple_source or DummyTripleSource()
         self.alpha_share = alpha_share
-        self.mac_check_generator = mac_check_generator
         self.rho_bits = rho_bits
         self._mac_accum = None       # random linear combination of residues
         self._mac_count = 0
+        # field residues awaiting their rhos, and their elements
+        self._field_queue = []
+        self._field_queued = 0
         # group residues, one queue per group (G1 and G2 do not add): each
         # opening's MAC shares and opened points, weighed and folded at the
         # check
         self._group_queue = {}
         self._group_count = 0
+
+    def check_generator(self) -> torch.Generator:
+        """The rhos' generator of one check, seeded by a coin toss among the
+        parties (one round of commitments and one of openings)."""
+        return torch.Generator(self.transport.device).manual_seed(
+            R.coin_toss(self.transport))
 
     def alpha_for(self, batch_ndim: int) -> FpArray:
         """The alpha share [P] reshaped to broadcast against party-shaped
@@ -70,17 +81,39 @@ class MpcContext:
     # -- field MAC check (SPDZ batched check) --
 
     def accumulate_mac_residue(self, residue: FpArray):
-        """residue: party-shaped [P, batch...] shares that must open to 0."""
+        """residue: party-shaped [P, batch...] shares that must open to 0.
+        It waits unweighted in the queue until a check draws its rhos; past
+        FIELD_QUEUE_ELEMS queued elements one coin toss weighs and folds
+        the queue, which bounds its memory (the rhos still come after the
+        openings they weigh)."""
         batch = residue.shape[1:]
         flat = residue.reshape(residue.shape[:1] + ((-1,) if batch else (1,)))
-        if self.rho_bits is not None or self.mac_check_generator is not None:
-            bits = None if self.rho_bits is None else self.rho_bits[self._mac_count]
-            rho = R.uniform_fp(self.mac_check_generator, flat.spec, flat.shape[1:],
-                               device=flat.device, bits=bits)
-            flat = flat * rho
-        s = _sum_last_axis(flat)
-        self._mac_accum = s if self._mac_accum is None else self._mac_accum + s
+        if self.rho_bits is not None:
+            rho = R.uniform_fp(None, flat.spec, flat.shape[1:], device=flat.device,
+                               bits=self.rho_bits[self._mac_count])
+            self._fold_field(flat * rho)
+        else:
+            self._field_queue.append(flat)
+            self._field_queued += flat.shape[1]
+            if self._field_queued >= FIELD_QUEUE_ELEMS:
+                self._weigh_field_queue()
         self._mac_count += 1
+
+    def _fold_field(self, weighted: FpArray):
+        s = _sum_last_axis(weighted)
+        self._mac_accum = s if self._mac_accum is None else self._mac_accum + s
+
+    def _weigh_field_queue(self):
+        """Weigh every queued residue by public rhos from one coin toss and
+        fold it into the accumulator."""
+        if not self._field_queue:
+            return
+        gen = self.check_generator()
+        for flat in self._field_queue:
+            self._fold_field(flat * R.uniform_fp(gen, flat.spec, flat.shape[1:],
+                                                 device=flat.device))
+        self._field_queue = []
+        self._field_queued = 0
 
     @property
     def mac_residue_count(self) -> int:
@@ -88,7 +121,9 @@ class MpcContext:
         return self._mac_count
 
     def drain_mac_check(self):
-        """The accumulated field residue share (must open to zero)."""
+        """The accumulated field residue share (must open to zero), the
+        queue weighed first."""
+        self._weigh_field_queue()
         acc = self._mac_accum
         self._mac_accum = None
         return acc
@@ -131,25 +166,20 @@ class MpcContext:
     def drain_group_mac_check(self) -> list:
         """The group residue shares, one party-shaped point per group:
         sum_j rho_j * (mac_ij - alpha_i * P_j) over every queued point j,
-        with one public rho_j per point drawn from ``mac_check_generator``
-        (the same for every party), so tampered shares cannot cancel
-        across points, as long as the tamperer cannot predict the rhos:
-        ``config.make_context`` seeds that generator from the public run
-        seed, so a party that knows it can.  Each group is one MSM of its queued MAC shares
+        with one public rho_j per point (the same for every party) from a
+        coin toss made after the openings, so tampered shares cannot cancel
+        across points.  Each group is one MSM of its queued MAC shares
         (scalars rho_j) and opened points (scalars -alpha_i * rho_j); each
         residue must open to infinity."""
         from ..ops.curve import SWPoint
         from ..ops.msm import sw_msm
         out = []
+        gen = self.check_generator() if self._group_queue else None
         for entries in self._group_queue.values():
-            if self.mac_check_generator is None:
-                raise ValueError("the group MAC check draws its weights from "
-                                 "mac_check_generator, which this context lacks")
             macs = SWPoint.concat([m for m, _ in entries], axis=-1)         # [P, M]
             opened = SWPoint.concat([o for _, o in entries], axis=-1)
             spec = self.alpha_share.spec
-            rho = R.uniform_fp(self.mac_check_generator, spec, macs.shape[1:],
-                               device=macs.device)                          # [M]
+            rho = R.uniform_fp(gen, spec, macs.shape[1:], device=macs.device)   # [M]
             rho_p = rho.broadcast_to(macs.shape)
             scal = FpArray.concat([rho_p, -(rho_p * self.alpha_for(1))], axis=-2)
             out.append(sw_msm(SWPoint.concat([macs, opened], axis=-1), scal))

@@ -109,17 +109,20 @@ class FpVar:
     def is_eq(self, other: "FpVar", generator) -> "Boolean":
         return (self - other).is_zero(generator)
 
-    def to_bits(self, generator, nbits: int | None = None):
+    def to_bits(self, generator, nbits: int | None = None, bits_val: MpcFp | None = None):
         """Bit-decompose with booleanity and recomposition constraints;
         returns Booleans, LSB first.
 
         nbits below the full width is a sound range restriction: the
         recomposition over the first nbits forces x < 2^nbits (the MPC
-        decomposition still runs at full width)."""
+        decomposition still runs at full width).  ``bits_val``: this wire's
+        full-width decomposition when a batched protocol run over several
+        wires already made it (the same wires and constraints follow)."""
         spec = self.cs.spec
         full = spec.p.bit_length()
         nbits = nbits or full
-        bits_val = B.bit_decomposition(self.value, generator)   # [.., full]
+        if bits_val is None:
+            bits_val = B.bit_decomposition(self.value, generator)   # [.., full]
         if nbits < full:
             bits_val = B._slice_last(bits_val, 0, nbits)
         bools = Boolean.new_witness_vec(self.cs, bits_val)

@@ -159,15 +159,24 @@ def _fixed_base_muls(gen_affine, g2: bool, scalars, device):
     return OC.sw_scalar_mul(base[0], s)
 
 
+def _verifying_key(sp: dict) -> VerifyingKey:
+    """The verifying key of `setup_params`' trapdoor (host scalar muls)."""
+    alpha, beta, gamma = sp["alpha"], sp["beta"], sp["gamma"]
+    u, v, w = sp["u"], sp["v"], sp["w"]
+    ginv = pow(gamma, -1, R)
+    ic = [SC.g1_mul(SC.G1_GEN, (beta * u[j] + alpha * v[j] + w[j]) % R * ginv % R)
+          for j in range(sp["ninst"])]
+    return VerifyingKey(SC.g1_mul(SC.G1_GEN, alpha), SC.g2_mul(SC.G2_GEN, beta),
+                        SC.g2_mul(SC.G2_GEN, gamma), SC.g2_mul(SC.G2_GEN, sp["delta"]), ic)
+
+
 def device_setup(cs: ConstraintSystem, seed: int = 0, device="cuda"
                  ) -> DeviceProvingKey:
     """Full setup with the query scalar-muls batched on ``device``."""
     sp = setup_params(cs, seed)
-    alpha, beta, gamma, delta, tau = (sp[k] for k in
-                                      ("alpha", "beta", "gamma", "delta", "tau"))
+    alpha, beta, delta, tau = (sp[k] for k in ("alpha", "beta", "delta", "tau"))
     u, v, w, z_tau, n, m, ninst = (sp[k] for k in
                                    ("u", "v", "w", "z_tau", "n", "m", "ninst"))
-    ginv = pow(gamma, -1, R)
     dinv = pow(delta, -1, R)
 
     h_scalars = []
@@ -183,9 +192,7 @@ def device_setup(cs: ConstraintSystem, seed: int = 0, device="cuda"
 
     def e2(k):
         return SC.g2_mul(SC.G2_GEN, k % R)
-    ic = [e1((beta * u[j] + alpha * v[j] + w[j]) % R * ginv % R)
-          for j in range(ninst)]
-    vk = VerifyingKey(e1(alpha), e2(beta), e2(gamma), e2(delta), ic)
+    vk = _verifying_key(sp)
     pk = ProvingKey(
         vk=vk, alpha_g1=e1(alpha), beta_g1=e1(beta), beta_g2=e2(beta),
         delta_g1=e1(delta), delta_g2=e2(delta),
@@ -220,7 +227,11 @@ def prove(dpk: DeviceProvingKey, cs: ConstraintSystem, generator=None,
     proof points (a, b, c), party-shaped.
 
     ``generator``: torch.Generator for the r and s shares; ``r``/``s``:
-    optional injected share tensors (FpArray [P]) in place of the draws."""
+    optional injected share tensors (FpArray [P]) in place of the draws.
+    One of the two is required: r and s blind the proof, so none is drawn
+    from a fixed seed."""
+    if generator is None and (r is None or s is None):
+        raise ValueError("prove needs a generator or injected r and s shares")
     pk = dpk.pk
     dev = dpk.device
     dom = Domain(FR, pk.domain_n, dev)
@@ -229,8 +240,6 @@ def prove(dpk: DeviceProvingKey, cs: ConstraintSystem, generator=None,
     z = cs.full_assignment()
     h = witness_map(FR, mats, z, dom, pk.num_instance, pk.num_constraints)
 
-    if generator is None and (r is None or s is None):
-        generator = torch.Generator().manual_seed(0)
     r = MS.rand_shared(generator, FR, shares=r)
     s = MS.rand_shared(generator, FR, shares=s)
 

@@ -196,15 +196,32 @@ def te_neg(p1):
     return ((-p1[0]) % EP, p1[1])
 
 
+def _te_add_ext(p1, p2):
+    """Unified addition in extended coordinates (X:Y:T:Z), x = X/Z, y = Y/Z,
+    T = XY/Z (add-2008-hwcd): no inversion."""
+    X1, Y1, T1, Z1 = p1
+    X2, Y2, T2, Z2 = p2
+    A, B = X1 * X2 % EP, Y1 * Y2 % EP
+    C, D = ED_D * T1 % EP * T2 % EP, Z1 * Z2 % EP
+    E = ((X1 + Y1) * (X2 + Y2) - A - B) % EP
+    F, G, H = (D - C) % EP, (D + C) % EP, (B - ED_A * A) % EP
+    return (E * F % EP, G * H % EP, E * H % EP, F * G % EP)
+
+
 def te_scalar_mul(pt, k: int):
+    """k * pt by double-and-add in extended coordinates and one inversion
+    at the end: the affine point of the affine double-and-add, without its
+    two inversions an addition."""
     k %= params.ED_FR_MODULUS
-    acc, base = TE_NEUTRAL, pt
+    x, y = int(pt[0]) % EP, int(pt[1]) % EP
+    acc, base = (0, 1, 0, 1), (x, y, x * y % EP, 1)
     while k:
         if k & 1:
-            acc = te_add(acc, base)
-        base = te_add(base, base)
+            acc = _te_add_ext(acc, base)
+        base = _te_add_ext(base, base)
         k >>= 1
-    return acc
+    zi = inv(acc[3], EP)
+    return (acc[0] * zi % EP, acc[1] * zi % EP)
 
 
 TE_GEN = (params.ED_GENERATOR_X, params.ED_GENERATOR_Y)
