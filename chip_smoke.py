@@ -33,7 +33,11 @@ six modes with Groth16 (SHE preprocessing at 1,024 slots, 251-bit ElGamal
 randomness), ``vote`` and ``role_assignment`` with Marlin under one
 universal SRS, KeyPublicizeCircuit(3) and DivinationCircuit(3) at the
 reference's parameters proved with Groth16, and a scripted CLI game with
-proofs (`werewolf_cli.run_scripted`).
+proofs (`werewolf_cli.run_scripted`).  Phase 10 runs the online binary in
+socket mode over phase 8's files: three OS processes on the card, one a
+party (``python -m zkmpc_tpu_torch.cli.online ... --id i --addrs F``)
+over the native TCP mesh, with Marlin and with Groth16; each must verify,
+and the three proofs must equal phase 8's stacked proof.
 
     python3 chip_smoke.py              # needs one CUDA card
     python3 chip_smoke.py --gates 64   # a quicker main-path run
@@ -1131,7 +1135,7 @@ def _marlin_report(what, report, launches, peak, wall):
         f"{launches.get('point_add_g2', 0)}")
 
 
-def phase_marlin(slots=1024, n_parties=3):
+def phase_marlin(out, slots=1024, n_parties=3):
     """Phase 8: the `main` binary's Marlin branch, `cli.main.run("marlin",
     inputs/inputs-template.json)` at `slots` slots and `n_parties` parties,
     semi-honest and on SPDZ (a universal KZG setup and index of the
@@ -1142,9 +1146,10 @@ def phase_marlin(slots=1024, n_parties=3):
     stacked transport over those runs' online_setup.json files: MyCircuit
     proved with Marlin over the semi-honest run's files and with Groth16
     over the SPDZ run's, each verified and a wrong instance rejected.  The
-    kernel counts are reset just before each run and read just after."""
-    import tempfile
-
+    kernel counts are reset just before each run and read just after.  The
+    runs' files stay in the directory ``out`` for phase 10.  Returns the
+    launches and, by zksnark, the online run's setup directory and
+    report."""
     import torch
     from zkmpc_tpu_torch.cli import main as CLI
     from zkmpc_tpu_torch.cli import online as ON
@@ -1166,57 +1171,158 @@ def phase_marlin(slots=1024, n_parties=3):
             total[k] = total.get(k, 0) + v
         return ok, launches, torch.cuda.max_memory_allocated(), wall
 
-    with tempfile.TemporaryDirectory() as out:
-        dirs = {}
-        for backend in ("semi", "spdz"):
-            report = {}
-            dirs[backend] = os.path.join(out, backend)
-            ok, launches, peak, wall = counted(lambda: CLI.run(
-                "marlin", inputs, n_parties=n_parties, outdir=dirs[backend], slots=slots,
-                backend=backend, device=dev, report=report))
-            what = f"main marlin --backend {backend} ({slots} slots, {n_parties} parties)"
-            if not (ok and report["verified"] and report["wrong_instance_rejected"]):
-                raise AssertionError(f"phase 8 {what}: verification failed ({report})")
-            if report["prove_openings"] <= 0 or report["prove_served"].get("triple", 0) <= 0:
-                raise AssertionError(f"phase 8 {what}: the prove opened nothing or took no "
-                                     f"preprocessed triple ({report})")
-            if min(launches.get("mont_mul_n51", 0), launches.get("point_add_g1", 0)) <= 0:
-                raise AssertionError(f"phase 8 {what}: K1 at 51 limbs or K2 never ran "
-                                     f"({launches})")
-            if backend == "spdz":
-                if min(report["field_mac_residues"],
-                       report["group_mac_residues_by_group"].get("G1", 0)) <= 0:
-                    raise AssertionError(f"phase 8 {what}: a MAC queue was empty ({report})")
-                log(f"phase 8 {what}: field MAC check over {report['field_mac_residues']} "
-                    f"openings and group MAC check over {report['group_mac_residues']} "
-                    f"openings ({report['group_mac_residues_by_group']}; required non-empty: "
-                    f"{report['group_mac_groups_required']}, a Marlin prove opens no G2 "
-                    f"point) passed")
-            log(f"phase 8 {what}: the proof verifies, a wrong instance is rejected")
-            _marlin_report(what, report, launches, peak, wall)
-        for zksnark, backend in (("marlin", "semi"), ("groth16", "spdz")):
-            report = {}
-            ok, launches, peak, wall = counted(lambda: ON.run(
-                inputs, dirs[backend], n_parties, zksnark=zksnark, device=dev, report=report))
-            what = f"online --zksnark {zksnark} (the {backend} run's online_setup.json)"
-            if not (ok and report["verified"] and report["wrong_instance_rejected"]):
-                raise AssertionError(f"phase 8 {what}: verification failed ({report})")
-            if report["c"] != 4 * 5 or min(launches.get("mont_mul", 0),
-                                           launches.get("point_add_g1", 0)) <= 0:
-                raise AssertionError(f"phase 8 {what}: wrong c or no K1/K2 launch "
-                                     f"({report}, {launches})")
-            log(f"phase 8 {what}: c = a*b = {report['c']} opened, the proof verifies, a wrong "
-                f"instance is rejected; {report['constraints']} constraints, synthesis "
-                f"{report['synthesis_s']:.2f} s, setup {report['setup_s']:.2f} s, prove "
-                f"{report['prove_s']:.2f} s ({report['prove_openings']} openings), verify "
-                f"{report['verify_s']:.2f} s; wall-clock in all {wall:.2f} s; peak device "
-                f"memory {peak} B ({peak / 2**30:.2f} GiB)"
-                + (f"; SRS degree {report['srs_degree']}, n = {report['domain_n']}, nx = "
-                   f"{report['nx']}, k = {report['k']}" if zksnark == "marlin" else ""))
-            log(f"phase 8 {what} launches: K1 by width " + ", ".join(
-                f"{k[len('mont_mul_'):]} {v}" for k, v in sorted(launches.items())
-                if k.startswith("mont_mul_n")) + f"; K2 {launches.get('point_add_g1', 0)}, "
-                f"K3 {launches.get('point_add_g2', 0)}")
+    dirs, online = {}, {}
+    for backend in ("semi", "spdz"):
+        report = {}
+        dirs[backend] = os.path.join(out, backend)
+        ok, launches, peak, wall = counted(lambda: CLI.run(
+            "marlin", inputs, n_parties=n_parties, outdir=dirs[backend], slots=slots,
+            backend=backend, device=dev, report=report))
+        what = f"main marlin --backend {backend} ({slots} slots, {n_parties} parties)"
+        if not (ok and report["verified"] and report["wrong_instance_rejected"]):
+            raise AssertionError(f"phase 8 {what}: verification failed ({report})")
+        if report["prove_openings"] <= 0 or report["prove_served"].get("triple", 0) <= 0:
+            raise AssertionError(f"phase 8 {what}: the prove opened nothing or took no "
+                                 f"preprocessed triple ({report})")
+        if min(launches.get("mont_mul_n51", 0), launches.get("point_add_g1", 0)) <= 0:
+            raise AssertionError(f"phase 8 {what}: K1 at 51 limbs or K2 never ran "
+                                 f"({launches})")
+        if backend == "spdz":
+            if min(report["field_mac_residues"],
+                   report["group_mac_residues_by_group"].get("G1", 0)) <= 0:
+                raise AssertionError(f"phase 8 {what}: a MAC queue was empty ({report})")
+            log(f"phase 8 {what}: field MAC check over {report['field_mac_residues']} "
+                f"openings and group MAC check over {report['group_mac_residues']} "
+                f"openings ({report['group_mac_residues_by_group']}; required non-empty: "
+                f"{report['group_mac_groups_required']}, a Marlin prove opens no G2 "
+                f"point) passed")
+        log(f"phase 8 {what}: the proof verifies, a wrong instance is rejected")
+        _marlin_report(what, report, launches, peak, wall)
+    for zksnark, backend in (("marlin", "semi"), ("groth16", "spdz")):
+        report = {}
+        ok, launches, peak, wall = counted(lambda: ON.run(
+            inputs, dirs[backend], n_parties, zksnark=zksnark, device=dev, report=report))
+        what = f"online --zksnark {zksnark} (the {backend} run's online_setup.json)"
+        if not (ok and report["verified"] and report["wrong_instance_rejected"]):
+            raise AssertionError(f"phase 8 {what}: verification failed ({report})")
+        if report["c"] != 4 * 5 or min(launches.get("mont_mul", 0),
+                                       launches.get("point_add_g1", 0)) <= 0:
+            raise AssertionError(f"phase 8 {what}: wrong c or no K1/K2 launch "
+                                 f"({report}, {launches})")
+        log(f"phase 8 {what}: c = a*b = {report['c']} opened, the proof verifies, a wrong "
+            f"instance is rejected; {report['constraints']} constraints, synthesis "
+            f"{report['synthesis_s']:.2f} s, setup {report['setup_s']:.2f} s, prove "
+            f"{report['prove_s']:.2f} s ({report['prove_openings']} openings), verify "
+            f"{report['verify_s']:.2f} s; wall-clock in all {wall:.2f} s; peak device "
+            f"memory {peak} B ({peak / 2**30:.2f} GiB)"
+            + (f"; SRS degree {report['srs_degree']}, n = {report['domain_n']}, nx = "
+               f"{report['nx']}, k = {report['k']}" if zksnark == "marlin" else ""))
+        log(f"phase 8 {what} launches: K1 by width " + ", ".join(
+            f"{k[len('mont_mul_'):]} {v}" for k, v in sorted(launches.items())
+            if k.startswith("mont_mul_n")) + f"; K2 {launches.get('point_add_g1', 0)}, "
+            f"K3 {launches.get('point_add_g2', 0)}")
+        online[zksnark] = (dirs[backend], dict(report, peak_device_bytes=peak,
+                                               launches=launches))
+    return total, online
+
+
+def _free_ports(n):
+    import socket
+    socks = [socket.socket() for _ in range(n)]
+    for s in socks:
+        s.bind(("127.0.0.1", 0))
+    ports = [s.getsockname()[1] for s in socks]
+    for s in socks:
+        s.close()
+    return ports
+
+
+#: the per-party seconds of an online run, in order
+ONLINE_TIMES = ("input_s", "synthesis_s", "setup_s", "prove_s", "verify_s")
+
+
+def phase_socket(online, workdir, timeout=300):
+    """Phase 10: the online binary in socket mode, one OS process a party on
+    the card (`python -m zkmpc_tpu_torch.cli.online ... --id i --addrs F`,
+    an address file of free localhost ports), over phase 8's files and at
+    its seed: MyCircuit with Marlin over the semi-honest run's files and
+    with Groth16 over the SPDZ run's.  Every process must exit 0 within
+    ``timeout`` seconds, verify and reject a wrong instance, give the proof
+    of the other parties and of phase 8's stacked run (``online``: by
+    zksnark, its setup directory and report), launch K1, K2 and, for
+    Groth16, K3, and import nothing of JAX or the JAX package.  Each
+    process counts its own launches from its start.  Logs per party the
+    seconds of input, synthesis, setup, prove and verify, the openings,
+    the mesh's bytes and broadcasts, peak device memory and the launches,
+    beside the stacked run's."""
+    from zkmpc_tpu_torch.parallel import native_net
+    native_net.build()
+    inputs = os.path.join(ROOT, "inputs", "inputs-template.json")
+    total = {}
+    for zksnark, (setup_dir, stacked) in online.items():
+        n = len([d for d in os.listdir(setup_dir) if d.isdigit()])
+        addrs = os.path.join(workdir, f"addrs_{zksnark}")
+        with open(addrs, "w") as f:
+            f.write("".join(f"127.0.0.1:{p}\n" for p in _free_ports(n)))
+        reports = [os.path.join(workdir, f"socket_{zksnark}_{i}.json") for i in range(n)]
+        logs = [os.path.join(workdir, f"socket_{zksnark}_{i}.log") for i in range(n)]
+        t0 = time.time()
+        procs = []
+        for i in range(n):
+            with open(logs[i], "w") as log_f:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-m", "zkmpc_tpu_torch.cli.online", inputs, "--outdir",
+                     setup_dir, "--id", str(i), "--addrs", addrs, "--zksnark", zksnark,
+                     "--seed", "0", "--device", DEVICE, "--report", reports[i]],
+                    cwd=ROOT, stdout=log_f, stderr=subprocess.STDOUT))
+        try:
+            rcs = [p.wait(timeout=max(1.0, t0 + timeout - time.time())) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.time() - t0
+        what = f"phase 10 online --zksnark {zksnark} over sockets ({n} processes)"
+        if any(rcs):
+            tails = "\n".join(f"party {i} (rc {rc}):\n" + open(logs[i]).read()[-3000:]
+                              for i, rc in enumerate(rcs))
+            raise AssertionError(f"{what}: a process failed\n{tails}")
+        got = []
+        for path in reports:
+            with open(path) as f:
+                got.append(json.load(f))
+        want = json.loads(json.dumps(stacked["proof"]))
+        for i, r in enumerate(got):
+            bad = sorted(m for m in r["modules"] if m in ("jax", "jaxlib", "zkmpc_tpu"))
+            if bad:
+                raise AssertionError(f"{what}: party {i} imported {bad}")
+            if not (r["verified"] and r["wrong_instance_rejected"]) or r["c"] != stacked["c"]:
+                raise AssertionError(f"{what}: party {i} did not verify ({r})")
+            if r["proof"] != want:
+                raise AssertionError(f"{what}: party {i}'s proof differs from phase 8's "
+                                     f"stacked proof")
+            need = ["mont_mul", "point_add_g1"] + (["point_add_g2"] if zksnark == "groth16"
+                                                  else [])
+            if min(r["launches"].get(k, 0) for k in need) <= 0:
+                raise AssertionError(f"{what}: party {i} never launched one of {need} "
+                                     f"({r['launches']})")
+            for k, v in r["launches"].items():
+                total[k] = total.get(k, 0) + v
+        log(f"{what}: all exit 0 in {wall:.2f} s wall-clock; every party verifies and rejects "
+            f"a wrong instance; the {n} proofs equal each other and phase 8's stacked proof; "
+            f"no process imported JAX or the JAX package")
+        for i, r in enumerate(got + [stacked]):
+            who = f"party {i}" if i < n else "stacked (phase 8)"
+            net = r.get("net")
+            log(f"phase 10 {zksnark} {who}: " + ", ".join(
+                f"{k[:-2]} {r[k]:.3f} s" for k in ONLINE_TIMES)
+                + f"; openings {r['openings']} (input {r['input_openings']}, synthesis "
+                f"{r['synthesis_openings'] - r['input_openings']}, prove {r['prove_openings']})"
+                + (f"; mesh sent {net['bytes_sent']} B, received {net['bytes_recv']} B, "
+                   f"{net['broadcasts']} broadcasts" if net else "")
+                + f"; peak device memory {r['peak_device_bytes']} B "
+                f"({r['peak_device_bytes'] / 2**30:.2f} GiB); {_kernel_counts(r['launches'])}")
     return total
 
 
@@ -1468,18 +1574,29 @@ def main(argv=None):
     import zkmpc_tpu_torch  # noqa: F401  (fails at once outside a checkout)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    import tempfile
     results = {}
-    phase_card()
-    phase_mont_mul(results)
-    phase_point_add(results)
-    phase_fixture()
-    wide = phase_slice(args.gates)
-    ped = phase_pedersen()
-    main_bin, semi = phase_main()
-    spdz = phase_spdz(semi)
-    marlin = phase_marlin()
-    werewolf = phase_werewolf()
-    paths = (wide, ped, main_bin, spdz, marlin, werewolf)
+    seconds = {}
+
+    def timed(name, fn, *a):
+        t0 = time.time()
+        out = fn(*a)
+        seconds[name] = time.time() - t0
+        return out
+    timed("1", phase_card)
+    timed("2", phase_mont_mul, results)
+    timed("3", phase_point_add, results)
+    timed("4a", phase_fixture)
+    wide = timed("4", phase_slice, args.gates)
+    ped = timed("5", phase_pedersen)
+    main_bin, semi = timed("6", phase_main)
+    spdz = timed("7", phase_spdz, semi)
+    with tempfile.TemporaryDirectory() as work:
+        marlin, online = timed("8", phase_marlin, work)
+        werewolf = timed("9", phase_werewolf)
+        socket = timed("10", phase_socket, online, work)
+    paths = (wide, ped, main_bin, spdz, marlin, werewolf, socket)
+    log("seconds by phase: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
     launches = {k: sum(p.get(k, 0) for p in paths) for k in set().union(*paths)}
     bad = sorted(m for m in sys.modules if m in ("jax", "zkmpc_tpu")
                  or m.startswith(("jax.", "jaxlib", "zkmpc_tpu.")))

@@ -131,9 +131,9 @@ def test_input_protocol_matches_reference_formula(tmp_path):
     with _scope():
         sh = ON.input_with_r(9, 2, 1, *ON.read_setups(str(legacy), N_PARTIES), device=CPU)
         assert _opened(sh) == [9]
-    # socket mode is not ported: the binary says so and exits
-    with pytest.raises(SystemExit, match="ROADMAP"):
-        ON.run("unused.json", party_id=0, addrs="data/3", device=CPU)
+    # socket mode needs the address file beside the party id
+    with pytest.raises(ValueError, match="--addrs"):
+        ON.run("unused.json", party_id=0, device=CPU)
 
 
 def test_inputs_match_reference():

@@ -2,20 +2,39 @@
 collaborative proof of MyCircuit.
 
 Port of ``zkmpc_tpu/cli/online.py`` (the reference's `examples/online.rs:
-87-301`), stacked transport: one process plays every party.  It reads each
-party's ``<outdir>/<i>/online_setup.json`` r-shares written by the `main`
-binary, runs the SPDZ input protocol (the owner's input masked with the
-opened r and corrected with the r-shares, the opened mask checked against
-its bracket MACs), publishes the owners' Pedersen commitments, proves
-MyCircuit (a * b = c with c opened in MPC, and both commitments) with
-Marlin (the default) or Groth16, verifies, and rejects a wrong instance.
+87-301`).  It reads the ``<outdir>/<i>/online_setup.json`` r-shares written
+by the `main` binary, runs the SPDZ input protocol (the owner's input masked
+with the opened r and corrected with the r-shares, the opened mask checked
+against its bracket MACs), publishes the owners' Pedersen commitments,
+proves MyCircuit (a * b = c with c opened in MPC, and both commitments)
+with Marlin (the default) or Groth16, verifies, and rejects a wrong
+instance.
+
+Without ``--id`` one process plays every party on the stacked transport
+and reads every party's file.  With ``--id i --addrs F`` the process is
+party i alone, one of the mesh's processes over TCP (the reference's
+``run_online.zsh`` topology; the party count is the address file's): it
+reads only ``<outdir>/<i>/online_setup.json``, consults the inputs file
+only for its own input, and its shares cross the mesh.  Three such
+processes give the stacked run's proof.
+
+Socket mode is a test net, not private: every party's random shares (the
+zero-sum input masks, the bit protocols' masks and bits, Groth16's r and
+s) are rows of draws from generators seeded by the public ``--seed``, the
+JAX package's replicated key.  Any process can recompute every other
+party's shares, and through the circuit's bit decompositions the other
+parties' inputs.  Per-party private seeds are ROADMAP Queue 3 work.
 
 Usage: python -m zkmpc_tpu_torch.cli.online inputs.json [--outdir outputs]
-       [--parties 3] [--zksnark marlin|groth16] [--seed 0] [--device cuda]
+       [--parties 3] [--id I --addrs FILE] [--zksnark marlin|groth16]
+       [--seed 0] [--device cuda] [--report FILE]
 
-It runs on the CUDA card unless ``--device cpu`` is given.  Socket mode
-(``--id``/``--addrs``, one process a party over the native TCP mesh) is not
-ported yet and exits nonzero.
+    python -m zkmpc_tpu_torch.cli.online inputs.json --id 0 --addrs data/3 &
+    python -m zkmpc_tpu_torch.cli.online inputs.json --id 1 --addrs data/3 &
+    python -m zkmpc_tpu_torch.cli.online inputs.json --id 2 --addrs data/3
+
+It runs on the CUDA card unless ``--device cpu`` is given; the MPC backend
+is semi-honest.
 """
 
 from __future__ import annotations
@@ -32,14 +51,13 @@ from .. import inputs as IN
 from ..circuits import my_circuit
 from ..crypto import pedersen
 from ..mpc.share import SHARED, MpcContext, MpcFp, mpc_scope
+from ..ops import build as K
 from ..ops.limbs import FR, FpArray
+from ..parallel.native_net import NativeMeshNet, SocketTransport, read_addrs
 from ..parallel.transport import StackedTransport
 from ..snark import groth16, marlin
 from ..snark.r1cs import ConstraintSystem
 from ..utils import serialize as SER
-
-SOCKET_NOT_PORTED = ("online --id/--addrs: socket mode (parallel/native_net.py) is not "
-                     "ported yet: ROADMAP.md, Queue 1 step 12.3")
 
 #: randomness bits of each input's Pedersen commitment
 COM_BITS = 16
@@ -47,20 +65,27 @@ COM_BITS = 16
 # the generator streams of a run, each seeded from (seed, stream)
 _STREAMS = ("r", "synthesis", "prove")
 
+#: wire size of a field element (384-bit little-endian, CanonicalSerialize-style)
+NB = 48
+#: the mesh channel of the input protocol and the commitments
+INPUT_CHAN = 2
+
+
+def read_setup(outdir: str, party: int):
+    """One party's ``online_setup.json``: (r, beta, bracket), r[slot] and
+    bracket[key][slot] (beta and bracket None for a file without the
+    bracket representation)."""
+    path = os.path.join(outdir, str(party), "online_setup.json")
+    _, r, _ = SER.read_online_setup(path)
+    beta, br = SER.read_online_setup_bracket(path)
+    return r, beta, br
+
 
 def read_setups(outdir: str, n_parties: int):
     """Every party's ``online_setup.json``: (r rows, betas, bracket rows),
-    r_rows[i][slot], betas[i], br_rows[i][key][slot] (None for a file
-    without the bracket representation)."""
-    r_rows, betas, br_rows = [], [], []
-    for i in range(n_parties):
-        path = os.path.join(outdir, str(i), "online_setup.json")
-        _, r, _ = SER.read_online_setup(path)
-        beta, br = SER.read_online_setup_bracket(path)
-        r_rows.append(r)
-        betas.append(beta)
-        br_rows.append(br)
-    return r_rows, betas, br_rows
+    r_rows[i][slot], betas[i], br_rows[i][key][slot]."""
+    r_rows, betas, br_rows = zip(*(read_setup(outdir, i) for i in range(n_parties)))
+    return list(r_rows), list(betas), list(br_rows)
 
 
 def input_with_r(x_int: int, slot: int, owner: int, r_rows, betas, br_rows,
@@ -87,26 +112,123 @@ def input_with_r(x_int: int, slot: int, owner: int, r_rows, betas, br_rows,
     return MpcFp(FpArray.from_int(FR, rows, device=device), SHARED)
 
 
-def run(inputs_path: str, outdir: str = "outputs", n_parties: int = 3,
+def input_with_r_socket(net: NativeMeshNet, x_int: int | None, slot: int, owner: int, r,
+                        beta, br, device="cuda") -> MpcFp:
+    """`input_with_r` over the mesh, as one party (``zkmpc_tpu/cli/
+    online.py:111-139``): a non-owner sends the owner its r share and its
+    bracket-MAC share under the owner's key (48-byte little-endian field
+    elements on channel 2); the owner opens r, checks sum gamma ==
+    beta_owner * r and sends eps = x - r back.  Only the owner passes
+    ``x_int``.  Returns the party's share [1]."""
+    p = FR.p
+    me, n = net.party_id, net.n_parties
+    with_bracket = br is not None
+    if with_bracket and beta is None:
+        raise ValueError("online_setup.json carries bracket MACs but no beta")
+    if (x_int is None) == (me == owner):
+        raise ValueError(f"input_with_r_socket: the owner (party {owner}) and only the owner "
+                         f"passes its input (this is party {me})")
+    if me == owner:
+        r_open = r[slot]
+        mac_sum = br[owner][slot] if with_bracket else 0
+        for i in range(n):
+            if i == me:
+                continue
+            blob = net.recv_bytes(i, max_len=2 * NB, chan=INPUT_CHAN)
+            if len(blob) not in (NB, 2 * NB):
+                raise ConnectionError(f"party {i} sent a {len(blob)}-byte input frame")
+            if (len(blob) == 2 * NB) != with_bracket:
+                raise ValueError("mixed online_setup.json files: some carry the bracket MACs "
+                                 "and some do not")
+            r_open += int.from_bytes(blob[:NB], "little")
+            mac_sum += int.from_bytes(blob[NB:], "little")
+        r_open %= p
+        if with_bracket and mac_sum % p != beta * r_open % p:
+            raise AssertionError("bracket MAC check failed on the opened input mask")
+        eps = (x_int - r_open) % p
+        for i in range(n):
+            if i != me:
+                net.send_bytes(i, eps.to_bytes(NB, "little"), chan=INPUT_CHAN)
+    else:
+        blob = (r[slot] % p).to_bytes(NB, "little")
+        if with_bracket:
+            blob += (br[owner][slot] % p).to_bytes(NB, "little")
+        net.send_bytes(owner, blob, chan=INPUT_CHAN)
+        reply = net.recv_bytes(owner, max_len=NB, chan=INPUT_CHAN)
+        if len(reply) != NB:
+            raise ConnectionError(f"party {owner} sent a {len(reply)}-byte eps frame")
+        eps = int.from_bytes(reply, "little")
+    mine = (r[slot] + (eps if me == owner else 0)) % p
+    return MpcFp(FpArray.from_int(FR, [mine], device=device), SHARED)
+
+
+def published_commitment(net: NativeMeshNet, pp, x_int: int | None, r_int: int, owner: int):
+    """The owner's Pedersen commitment to its input, broadcast on channel 2
+    as two 48-byte coordinates (zeros from the other parties: broadcast
+    frames are of one length)."""
+    blob = bytes(2 * NB)
+    if net.party_id == owner:
+        cx, cy = pedersen.commit_public_ints(pp, x_int, r_int)
+        blob = int(cx).to_bytes(NB, "little") + int(cy).to_bytes(NB, "little")
+    got = net.broadcast_bytes(blob, chan=INPUT_CHAN)[owner]
+    return int.from_bytes(got[:NB], "little"), int.from_bytes(got[NB:], "little")
+
+
+def _canonical(x):
+    """A proof (dicts, tuples and lists of ints and strings) as JSON-ready
+    lists."""
+    if isinstance(x, dict):
+        return {k: _canonical(v) for k, v in x.items()}
+    if isinstance(x, (tuple, list)):
+        return [_canonical(v) for v in x]
+    return x
+
+
+def run(inputs_path: str, outdir: str = "outputs", n_parties: int | None = None,
         party_id: int | None = None, addrs: str | None = None, zksnark: str = "marlin",
         seed: int = 0, device="cuda", report: dict | None = None) -> bool:
     """The online binary's run; True if the proof verifies and a wrong
-    instance is rejected.  ``report``: a dict that receives the circuit's
-    size, the setup, prove and verify seconds (to a device synchronize) and
-    the openings."""
-    if party_id is not None or addrs is not None:
-        raise SystemExit(SOCKET_NOT_PORTED)
+    instance is rejected.  ``party_id`` and ``addrs`` (an address file)
+    run one party over the mesh; without them one process plays
+    ``n_parties`` (default 3) on the stacked transport.  ``report``: a dict
+    that receives the circuit's size, the input, synthesis, setup, prove
+    and verify seconds (to a device synchronize), the openings, the proof
+    as canonical ints and, on the mesh, its byte and broadcast counters."""
     if zksnark not in ("marlin", "groth16"):
         raise SystemExit(f"unknown zksnark {zksnark!r}")
+    if party_id is not None and addrs is None:
+        raise ValueError("--id needs --addrs: socket mode reads the parties' addresses from a "
+                         "file")
+    if addrs is not None and party_id is None:
+        raise ValueError("--addrs needs --id: socket mode runs one party a process")
+    if party_id is not None:
+        addr_list = read_addrs(addrs)
+        if n_parties is not None and n_parties != len(addr_list):
+            raise ValueError(f"--parties {n_parties} does not match the {len(addr_list)} "
+                             f"addresses of --addrs {addrs}")
+        if not 0 <= party_id < len(addr_list):
+            raise ValueError(f"--id {party_id} is not a party of --addrs {addrs} "
+                             f"({len(addr_list)} parties)")
     dev = torch.device(device)
     rep = report if report is not None else {}
     gens = {name: torch.Generator(dev).manual_seed((seed << 8) | k)
             for k, name in enumerate(_STREAMS)}
     with open(inputs_path) as f:
         doc = json.load(f)
-    # party 0 owns x, party 1 owns y (`online.rs:87-125`)
+    # party 0 owns x, party 1 owns y (`online.rs:87-125`); a party of the
+    # mesh consults the inputs file only for its own input
     a_int, b_int = int(doc.get("x", 3)), int(doc.get("y", 5))
-    r_rows, betas, br_rows = read_setups(outdir, n_parties)
+    net = None
+    if party_id is None:
+        n_parties = 3 if n_parties is None else n_parties
+        setups = read_setups(outdir, n_parties)
+        transport = StackedTransport(n_parties, dev)
+    else:
+        n_parties = len(addr_list)
+        a_int = a_int if party_id == 0 else None
+        b_int = b_int if party_id == 1 else None
+        own = read_setup(outdir, party_id)
+        net = NativeMeshNet(party_id, addr_list)
 
     def lap(name, t0):
         if dev.type == "cuda":
@@ -114,55 +236,76 @@ def run(inputs_path: str, outdir: str = "outputs", n_parties: int = 3,
         rep[name] = time.time() - t0
         return time.time()
 
-    transport = StackedTransport(n_parties, dev)
-    with mpc_scope(MpcContext(transport, backend="semi")):
-        a = input_with_r(a_int, 0, 0, r_rows, betas, br_rows, dev)
-        b = input_with_r(b_int, 1, 1, r_rows, betas, br_rows, dev)
-        # each owner commits to its input and publishes the commitment
-        # (`input.rs:57-105`); the blinding bits come from the common seed
-        pp = pedersen.PedersenParams.sample(seed)
-        ra, rb = (int(v) for v in torch.randint(0, 1 << COM_BITS, (2,), generator=gens["r"],
-                                                device=dev).tolist())
-        iwcs = [IN.InputWithCommit(owner, x, MpcFp.const(FR, [(r >> i) & 1
-                                                              for i in range(COM_BITS)]),
-                                   pedersen.commit_public_ints(pp, x_int, r))
-                for owner, (x, x_int, r) in enumerate(((a, a_int, ra), (b, b_int, rb)))]
-        # the public output c = a * b is computed in MPC and opened
-        t = time.time()
-        c_pub = int((a * b).reveal().to_ints().reshape(-1)[0])
-        cs = ConstraintSystem(FR)
-        my_circuit.build(cs, iwcs[0], iwcs[1], c_pub, pp, gens["synthesis"],
-                         com_nbits=COM_BITS)
-        t = lap("synthesis_s", t)
-        if not cs.is_satisfied_ints():
-            raise AssertionError("online circuit unsatisfied")
-        rep.update(constraints=len(cs.constraints), variables=cs.num_vars,
-                   synthesis_openings=transport.stats.rounds)
-        instance = cs.instance_ints()
-        bad = list(instance)
-        bad[1] = (bad[1] + 1) % FR.p
-        rounds = transport.stats.rounds
-        if zksnark == "marlin":
-            index = marlin.setup_and_index(cs, seed=seed + 1, device=dev)
-            t = lap("setup_s", t)
-            proof = marlin.prove(index, cs, gens["prove"])
-            t = lap("prove_s", t)
-            ok = marlin.verify(index, instance, proof)
-            neg = not marlin.verify(index, bad, proof)
-            rep.update(srs_degree=len(index.srs.powers) - 1, domain_n=index.domain_n,
-                       nx=index.nx, k=[m.k_size for m in index.index_comms])
-        else:
-            dpk = groth16.device_setup(cs, seed=seed + 1, device=dev)
-            t = lap("setup_s", t)
-            pints = groth16.proof_to_ints(groth16.prove(dpk, cs, gens["prove"]))
-            t = lap("prove_s", t)
-            ok = groth16.verify(dpk.pk.vk, instance, pints)
-            neg = not groth16.verify(dpk.pk.vk, bad, pints)
-        lap("verify_s", t)
-    rep.update(zksnark=zksnark, c=c_pub, verified=ok, wrong_instance_rejected=neg,
-               prove_openings=transport.stats.rounds - rounds, instance=instance)
-    print(f"online {zksnark}: prove {rep['prove_s']:.3f}s, verify {rep['verify_s']:.3f}s, "
-          f"ok={ok} negative={neg} comm={transport.stats!r}")
+    try:
+        if net is not None:
+            net.connect()
+            transport = SocketTransport(net, dev)
+        with mpc_scope(MpcContext(transport, backend="semi")):
+            t = time.time()
+            if net is None:
+                a = input_with_r(a_int, 0, 0, *setups, dev)
+                b = input_with_r(b_int, 1, 1, *setups, dev)
+            else:
+                a = input_with_r_socket(net, a_int, 0, 0, *own, dev)
+                b = input_with_r_socket(net, b_int, 1, 1, *own, dev)
+            # each owner commits to its input and publishes the commitment
+            # (`input.rs:57-105`); the blinding bits come from the common seed
+            pp = pedersen.PedersenParams.sample(seed)
+            ra, rb = (int(v) for v in torch.randint(0, 1 << COM_BITS, (2,),
+                                                    generator=gens["r"], device=dev).tolist())
+            iwcs = []
+            for owner, (x, x_int, r) in enumerate(((a, a_int, ra), (b, b_int, rb))):
+                com = (pedersen.commit_public_ints(pp, x_int, r) if net is None
+                       else published_commitment(net, pp, x_int, r, owner))
+                iwcs.append(IN.InputWithCommit(
+                    owner, x, MpcFp.const(FR, [(r >> i) & 1 for i in range(COM_BITS)]), com))
+            t = lap("input_s", t)
+            rep["input_openings"] = transport.stats.rounds
+            # the public output c = a * b is computed in MPC and opened
+            c_pub = int((a * b).reveal().to_ints().reshape(-1)[0])
+            cs = ConstraintSystem(FR)
+            my_circuit.build(cs, iwcs[0], iwcs[1], c_pub, pp, gens["synthesis"],
+                             com_nbits=COM_BITS)
+            t = lap("synthesis_s", t)
+            if not cs.is_satisfied_ints():
+                raise AssertionError("online circuit unsatisfied")
+            rep.update(constraints=len(cs.constraints), variables=cs.num_vars,
+                       synthesis_openings=transport.stats.rounds)
+            instance = cs.instance_ints()
+            bad = list(instance)
+            bad[1] = (bad[1] + 1) % FR.p
+            rounds = transport.stats.rounds
+            if zksnark == "marlin":
+                index = marlin.setup_and_index(cs, seed=seed + 1, device=dev)
+                t = lap("setup_s", t)
+                proof = marlin.prove(index, cs, gens["prove"])
+                t = lap("prove_s", t)
+                ok = marlin.verify(index, instance, proof)
+                neg = not marlin.verify(index, bad, proof)
+                rep.update(srs_degree=len(index.srs.powers) - 1, domain_n=index.domain_n,
+                           nx=index.nx, k=[m.k_size for m in index.index_comms])
+            else:
+                dpk = groth16.device_setup(cs, seed=seed + 1, device=dev)
+                t = lap("setup_s", t)
+                proof = groth16.proof_to_ints(groth16.prove(dpk, cs, gens["prove"]))
+                t = lap("prove_s", t)
+                ok = groth16.verify(dpk.pk.vk, instance, proof)
+                neg = not groth16.verify(dpk.pk.vk, bad, proof)
+            lap("verify_s", t)
+        rep.update(zksnark=zksnark, c=c_pub, verified=ok, wrong_instance_rejected=neg,
+                   prove_openings=transport.stats.rounds - rounds, instance=instance,
+                   openings=transport.stats.rounds, proof=_canonical(proof),
+                   transport=transport.kind)
+        who = transport.kind
+        if net is not None:
+            rep.update(party_id=party_id, n_parties=n_parties, net=net.stats)
+            who += f", party {party_id} of {n_parties}, net {rep['net']}"
+    finally:
+        if net is not None:
+            net.close()
+    print(f"online {zksnark} ({who}): input {rep['input_s']:.3f}s, synthesis "
+          f"{rep['synthesis_s']:.3f}s, setup {rep['setup_s']:.3f}s, prove {rep['prove_s']:.3f}s, "
+          f"verify {rep['verify_s']:.3f}s, ok={ok} negative={neg} comm={transport.stats!r}")
     return ok and neg
 
 
@@ -170,16 +313,29 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("inputs")
     ap.add_argument("--outdir", default="outputs")
-    ap.add_argument("--parties", type=int, default=3)
-    ap.add_argument("--id", type=int, default=None, help="party id (socket mode, not ported)")
-    ap.add_argument("--addrs", default=None, help="address file (socket mode, not ported)")
+    ap.add_argument("--parties", type=int, default=None,
+                    help="party count (default 3; in socket mode the address file's)")
+    ap.add_argument("--id", type=int, default=None, help="this process's party id (socket mode)")
+    ap.add_argument("--addrs", default=None,
+                    help="address file, one host:port a party (socket mode)")
     ap.add_argument("--zksnark", choices=["marlin", "groth16"], default="marlin")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu for a run without a card)")
+    ap.add_argument("--report", default=None,
+                    help="write the run's report as JSON here, with the kernel launches, the "
+                         "peak device memory and the top-level modules loaded")
     args = ap.parse_args(argv)
+    report = {}
     ok = run(args.inputs, args.outdir, args.parties, args.id, args.addrs, args.zksnark,
-             args.seed, args.device)
+             args.seed, args.device, report=report)
+    if args.report:
+        report.update(launches=dict(K.LAUNCHES),
+                      modules=sorted({m.split(".")[0] for m in sys.modules}))
+        if torch.device(args.device).type == "cuda":
+            report["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+        with open(args.report, "w") as f:
+            json.dump(report, f)
     sys.exit(0 if ok else 1)
 
 

@@ -31,29 +31,40 @@ from .mpc.share import SHARED, MpcFp, _rebroadcast, _sum_axis0, ctx
 from .ops.limbs import FR, FpArray
 
 
-def input_share(value: FpArray, owner: int, generator, mask: FpArray | None = None) -> MpcFp:
+def input_share(value: FpArray | None, owner: int, generator, mask: FpArray | None = None,
+                shape=None) -> MpcFp:
     """Additive sharing where party ``owner`` contributes the value and every
     party adds a zero-sum mask (the re-randomized form of `generate_share`,
     `input.rs:808-830`): parties 0..P-2 hold uniform draws, the last minus
-    their sum, the owner adds the value.  ``value`` may be party-shaped
-    [P, ...]: the owner's row is the one shared.  ``mask``: optional injected
-    draws [P-1, *batch] in place of the generator's."""
+    their sum, the owner adds the value.  Only a process that plays the
+    owner passes ``value``; on a socket every other party passes None and
+    the batch ``shape``.  On the stacked transport ``value`` may be
+    party-shaped [P, ...]: the owner's row is the one shared.  ``mask``:
+    optional injected draws [P-1, *batch] in place of the generator's."""
     c = ctx()
     t = c.transport
-    spec = value.spec
-    value = value.to(t.device)
-    if value.ndim and value.shape[0] == t.n_parties:
-        value = value[owner]
-    batch = tuple(value.shape)
+    if (value is None) == t.holds(owner):
+        raise ValueError(f"input_share: the owner (party {owner}) and only the owner passes "
+                         f"the value (this process plays {t.row_ids})")
+    if value is None:
+        spec, batch = FR, tuple(shape or ())
+    else:
+        spec = value.spec
+        value = value.to(t.device)
+        if t.holds_all_rows and value.ndim and value.shape[0] == t.n_parties:
+            value = value[owner]
+        batch = tuple(value.shape)
     if mask is None:
         mask = R.uniform_fp(generator, spec, (t.n_parties - 1,) + batch, device=t.device)
     mask = mask.to(t.device)
     assert mask.shape == (t.n_parties - 1,) + batch, mask.shape
     last = -_sum_axis0(mask)
-    base = FpArray.concat([mask, last.reshape((1,) + batch)], axis=0)
-    sel = (t.party_index(len(batch)) == owner).expand((t.n_parties,) + batch)
-    owner_row = value.broadcast_to((t.n_parties,) + batch)
-    add = FpArray.select(sel, owner_row, FpArray.zeros(spec, owner_row.shape, t.device))
+    base = t.own_rows(FpArray.concat([mask, last.reshape((1,) + batch)], axis=0))
+    zeros = FpArray.zeros(spec, base.shape, t.device)
+    add = zeros
+    if value is not None:
+        sel = (t.party_index(len(batch)) == owner).expand(base.shape)
+        add = FpArray.select(sel, value.broadcast_to(base.shape), zeros)
     mac = None
     if c.backend == "spdz":
         mac = FpArray(_rebroadcast(t, value.limbs), spec, value.bound) * c.alpha_for(len(batch))
@@ -75,9 +86,10 @@ class InputWithCommit:
         """Share the owner's value and publish its Pedersen commitment; the
         common randomness ``r_int`` is drawn from ``generator`` below
         2^16 unless given."""
-        dev = ctx().transport.device
-        val = FpArray.from_int(FR, np.asarray(value_ints, dtype=object), device=dev)
-        shared = input_share(val, allocation, generator)
+        t = ctx().transport
+        ints = np.asarray(value_ints, dtype=object)
+        val = FpArray.from_int(FR, ints, device=t.device) if t.holds(allocation) else None
+        shared = input_share(val, allocation, generator, shape=ints.shape)
         if r_int is None:
             r_int = int(torch.randint(0, 1 << 16, (), generator=generator,
                                       device=generator.device))

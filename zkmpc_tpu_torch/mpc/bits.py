@@ -207,7 +207,8 @@ def bit_rand(generator, spec: FieldSpec, shape=(), raw=None) -> MpcFp:
 
     Each party contributes a trivially shared private bit; a log-depth XOR
     tree of Beaver products combines them, so the result is uniform as long
-    as one party is honest.  ``raw``: optional injected bool tensor
+    as one party is honest.  The bits are drawn for every party, [P, *shape],
+    and a party keeps its own row.  ``raw``: optional injected bool tensor
     [P, *shape] of the parties' bits in place of the generator's draws (the
     reference draws party i's bits from ``fold_in(key, i)``).
 
@@ -227,12 +228,13 @@ def bit_rand(generator, spec: FieldSpec, shape=(), raw=None) -> MpcFp:
                          device=generator.device) < 0.5
     raw = torch.as_tensor(raw, dtype=torch.bool).to(t.device)
     assert tuple(raw.shape) == (P_,) + shape, raw.shape
+    raw = t.own_rows(raw)                                           # [rows, ...]
     one = spec.const("one_limbs", t.device)
-    eye = torch.eye(P_, dtype=torch.bool, device=t.device)
+    ids = t.party_index(len(shape))
     # contribution i: party i's row holds its bit, the other rows zero
-    held = eye.reshape((P_, P_) + (1,) * len(shape)) & raw[None]   # [i, party, ...]
-    limbs = torch.where(held[..., None], one, torch.zeros_like(one))
-    contribs = [MpcFp(FpArray(limbs[i], spec, 1), SHARED) for i in range(P_)]
+    contribs = [MpcFp(FpArray(torch.where(((ids == i) & raw)[..., None], one,
+                                          torch.zeros_like(one)), spec, 1), SHARED)
+                for i in range(P_)]
     while len(contribs) > 1:
         nxt = [b_xor(contribs[j], contribs[j + 1])
                for j in range(0, len(contribs) - 1, 2)]

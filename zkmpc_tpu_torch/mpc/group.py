@@ -2,8 +2,10 @@
 
 Port of ``zkmpc_tpu/mpc/group.py``:
 
-- a shared point tensor is one Jacobian point (batch) per party;
-- reveal = complete-addition fold over the party axis;
+- a shared point tensor is one Jacobian point (batch) per party, on a
+  leading axis of ``transport.rows`` rows;
+- reveal = complete-addition fold over the party axis (on a socket the
+  parties' tightened shares are all-gathered first);
 - scaling a shared point by a shared scalar uses a group Beaver triple;
 - an MSM of public bases with shared scalars is local to each party;
 - under the SPDZ backend a shared point carries group MAC shares
@@ -30,7 +32,7 @@ __all__ = ["MpcSWPoint", "mpc_msm", "mpc_msm_many", "scale_many", "scale_sum",
 
 class MpcSWPoint:
     """Shared (or public) batch of short-Weierstrass points; layout
-    [P, batch...].  ``mac``: the group MAC shares of a shared point under
+    [rows, batch...].  ``mac``: the group MAC shares of a shared point under
     SPDZ, in the same layout; ``offset``: None or a public point Q (party
     layout, replicated) that they leave out: party i's MAC share is
     mac_i + alpha_i * Q, and its residue at an opening P' is
@@ -52,7 +54,7 @@ class MpcSWPoint:
     @classmethod
     def from_public(cls, point: SWPoint):
         t = T.current()
-        return cls(M._bcast_sw(point, (t.n_parties,) + tuple(point.shape)), PUBLIC)
+        return cls(M._bcast_sw(point, (t.rows,) + tuple(point.shape)), PUBLIC)
 
     # ---------------------------------------------------------------- algebra
 
@@ -66,7 +68,7 @@ class MpcSWPoint:
             # the leader adds the public point to its share; the MAC shares
             # owe alpha_i * P_pub more, which the offset carries
             t = T.current()
-            mask = (t.party_index(len(self.shape)) == 0).expand(a.point.shape)
+            mask = t.leader_mask(len(self.shape)).expand(a.point.shape)
             added = sw_add_complete(a.point, b.point)
             offset = None if a.mac is None else _add_offsets(a.offset, b.point)
             return MpcSWPoint(SWPoint.select(mask, added, a.point), SHARED, a.mac, offset)
@@ -113,13 +115,15 @@ class MpcSWPoint:
         return _group_beaver_scale(self, x)
 
     def reveal(self) -> SWPoint:
-        """Open the shared point: fold all party shares with complete adds.
-        Under SPDZ the MAC residue joins the context's group-MAC queue."""
+        """Open the shared point: fold all party shares with complete adds
+        (a socket party all-gathers them first).  Under SPDZ the MAC
+        residue joins the context's group-MAC queue."""
         if self.visibility == PUBLIC:
             return self.point
         t = T.current()
-        acc = _fold_leading_axis(self.point, t.n_parties)
-        acc = M._bcast_sw(acc, (t.n_parties,) + tuple(acc.shape))
+        shares = self.point if t.holds_all_rows else _gather_shares(t, self.point)
+        acc = _fold_leading_axis(shares, t.n_parties)
+        acc = M._bcast_sw(acc, (t.rows,) + tuple(acc.shape))
         if self.mac is not None:
             owed = acc if self.offset is None else sw_add_complete(acc, sw_neg(self.offset))
             ctx().accumulate_group_mac_residue(self.mac, owed)
@@ -127,6 +131,18 @@ class MpcSWPoint:
 
     def open(self) -> "MpcSWPoint":
         return MpcSWPoint(self.reveal(), PUBLIC)
+
+
+def _gather_shares(t: T.Transport, p: SWPoint) -> SWPoint:
+    """A socket party's point share [1, ...] -> every party's [P, ...]:
+    one all-gather of the tightened Jacobian coordinates, with the
+    infinity flag as one more column."""
+    p = p.tighten()
+    leaves = p.leaves()
+    widths = [leaf.shape[-1] for leaf in leaves[:-1]]
+    packed = torch.cat(leaves[:-1] + [p.inf.to(torch.int64)[..., None]], dim=-1)
+    cols = iter(torch.split(t.all_gather(packed)[0], widths + [1], dim=-1))
+    return p.map(lambda _: next(cols), lambda _: next(cols)[..., 0].bool())
 
 
 def _fold_leading_axis(p: SWPoint, n: int) -> SWPoint:
@@ -162,8 +178,8 @@ def with_mac_from_public(point_pub: SWPoint) -> MpcSWPoint:
     """Lift a public point into a MAC'd SPDZ sharing: the leader holds P,
     every party holds the MAC share alpha_i * P."""
     t = T.current()
-    point_pub = M._bcast_sw(point_pub, (t.n_parties,) + tuple(point_pub.shape))
-    mask = (t.party_index(len(point_pub.shape) - 1) == 0).expand(point_pub.shape)
+    point_pub = M._bcast_sw(point_pub, (t.rows,) + tuple(point_pub.shape))
+    mask = t.leader_mask(len(point_pub.shape) - 1).expand(point_pub.shape)
     share = SWPoint.select(mask, point_pub, SWPoint.infinity_like(point_pub))
     return MpcSWPoint(share, SHARED, _alpha_scale(point_pub))
 

@@ -67,19 +67,21 @@ def coin_toss(transport, seeds=None, openings=None) -> int:
     seed).  Every party checks every opening against its commitment, and
     the result is a hash of all the seeds.  One round of commitments and
     one of openings through the transport, so its `CommStats` counts
-    them."""
+    them.  A process draws, commits and opens only the seeds of the parties
+    it plays (its rows), on tensors [rows, P, 32]."""
     n = transport.n_parties
+    ids = transport.row_ids
     if seeds is None:
-        seeds = [secrets.token_bytes(32) for _ in range(n)]
+        seeds = {i: secrets.token_bytes(32) for i in ids}
     openings = seeds if openings is None else openings
 
     def tensor(rows):
         return torch.tensor([list(r) for r in rows], dtype=torch.uint8,
                             device=transport.device)
-    seen = transport.all_gather(tensor(_commitment(i, s) for i, s in enumerate(seeds)))
-    opened = transport.all_gather(tensor(openings)).cpu().numpy()      # [holder, party, 32]
-    seen = seen.cpu().numpy()
-    for holder in range(n):
+    seen = transport.all_gather(tensor(_commitment(i, seeds[i]) for i in ids))
+    opened = transport.all_gather(tensor(openings[i] for i in ids)).cpu().numpy()
+    seen = seen.cpu().numpy()                                   # [holder, party, 32]
+    for holder in range(len(ids)):
         for i in range(n):
             if _commitment(i, opened[holder, i].tobytes()) != seen[holder, i].tobytes():
                 raise AssertionError(f"coin toss: party {i}'s opening does not match "

@@ -9,6 +9,15 @@ product is a batched Beaver multiplication; under the SPDZ backend every
 shared wire carries a MAC share (sum_i mac_i = alpha * value) that linear
 ops maintain, and every opening queues its residue mac_i - alpha_i * opened
 for a batched check that must be drained and verified.
+
+Every tensor has a leading party axis of ``transport.rows`` rows: all
+parties on the stacked transport, the party's own row on a socket.  Every
+random draw is made at the stacked shape [P, ...] from the generator and
+a party keeps its own rows (`Transport.own_rows`), so a socket party holds
+exactly its row of the stacked run.  The generators stand for a replicated
+key, seeded from the run's public seed (a test-net dealer): a socket party
+can recompute every other party's shares, so inputs are not private from
+peers.
 """
 
 from __future__ import annotations
@@ -49,6 +58,10 @@ class MpcContext:
             raise ValueError(f"unknown MPC backend {backend!r}")
         if backend == "spdz" and alpha_share is None:
             raise ValueError("the spdz backend needs the MAC key shares")
+        if backend == "spdz" and not transport.holds_all_rows:
+            raise NotImplementedError("the spdz backend over a socket transport is not ported "
+                                      "(no JAX entry point runs it): ROADMAP.md, Queue 1 "
+                                      "step 12.3")
         self.transport = transport
         self.backend = backend
         self.triple_source = triple_source or DummyTripleSource()
@@ -202,7 +215,8 @@ class MpcContext:
 
 
 def _open(t: T.Transport, x: FpArray) -> FpArray:
-    """Sum party shares [P, ...] to the opened value, replicated [P, ...]."""
+    """Sum party shares [rows, ...] to the opened value, replicated
+    [rows, ...]."""
     x = x.tighten()
     opened = t.psum(x.limbs)
     return FpArray(_resolve2(opened)[..., :x.spec.nlimbs], x.spec,
@@ -266,16 +280,21 @@ def check_eq(x) -> bool:
 
 
 def _rebroadcast(t: T.Transport, limbs):
-    """A [...]-shaped public tensor -> the party-shaped layout [P, ...]."""
-    return limbs[None].expand((t.n_parties,) + tuple(limbs.shape))
+    """A [...]-shaped public tensor -> the party-shaped layout [rows, ...]."""
+    return limbs[None].expand((t.rows,) + tuple(limbs.shape))
 
 
 def party_shape(t: T.Transport, batch_shape):
+    return (t.rows,) + tuple(batch_shape)
+
+
+def stacked_shape(t: T.Transport, batch_shape):
+    """The shape of a draw for every party, [P, ...]."""
     return (t.n_parties,) + tuple(batch_shape)
 
 
 class MpcFp:
-    """Field tensor with visibility; value layout [P, batch...].  Under the
+    """Field tensor with visibility; value layout [rows, batch...].  Under the
     SPDZ backend a shared wire also carries ``mac``, its MAC shares in the
     same layout."""
 
@@ -314,8 +333,7 @@ class MpcFp:
         """Replicate a plain FpArray across the parties as a public wire."""
         t = T.current()
         limbs = value.limbs.to(t.device)
-        limbs = limbs[None].expand((t.n_parties,) + tuple(limbs.shape))
-        return cls(FpArray(limbs, value.spec, value.bound), PUBLIC)
+        return cls(FpArray(_rebroadcast(t, limbs), value.spec, value.bound), PUBLIC)
 
     @classmethod
     def const(cls, spec: FieldSpec, ints):
@@ -349,7 +367,7 @@ class MpcFp:
     # ------------------------------------------------------------- arithmetic
 
     def _leader_mask(self):
-        return T.current().party_index(self.value.ndim - 1) == 0
+        return T.current().leader_mask(self.value.ndim - 1)
 
     def _aligned(self, other):
         """Insert singleton batch axes after the party axis so wires of
@@ -502,7 +520,7 @@ class DummyTripleSource(TripleSource):
         full = party_shape(t, shape) + (spec.nlimbs,)
 
         def bcast(f: FpArray):
-            limbs = f.limbs.reshape((t.n_parties,) + (1,) * len(shape) + (spec.nlimbs,))
+            limbs = f.limbs.reshape((t.rows,) + (1,) * len(shape) + (spec.nlimbs,))
             return FpArray(limbs.expand(full), spec, f.bound)
         a = one.map(bcast)
         return a, a, a
@@ -523,7 +541,7 @@ class DummyTripleSource(TripleSource):
         else:
             gen = SWPoint.g1_from_affine_ints([SC.G1_GEN], t.device)
         gen = _bcast_sw(gen[0], P.point.shape)
-        mask = (t.party_index(len(P.shape)) == 0).expand(P.point.shape)
+        mask = t.leader_mask(len(P.shape)).expand(P.point.shape)
         mac = _alpha_scale(gen) if ctx().backend == "spdz" else None
         Bp = MpcSWPoint(SWPoint.select(mask, gen, SWPoint.infinity_like(gen)),
                         SHARED, mac)
@@ -574,8 +592,9 @@ def beaver_div(x: MpcFp, y: MpcFp) -> MpcFp:
 
 def rand_shared(generator, spec: FieldSpec, shape=(), shares=None) -> MpcFp:
     """Fresh random shared value.  Semi-honest: each party holds an
-    independent uniform share; ``shares``: optional injected share tensor
-    (FpArray [P, *shape]) in place of the draw.  SPDZ: the value must carry
+    independent uniform share, its row of one [P, *shape] draw; ``shares``:
+    optional injected share tensor (FpArray [P, *shape]) in place of the
+    draw.  SPDZ: the value must carry
     MACs, so it comes from the triple source's <r> pool (a source without
     one raises)."""
     c = ctx()
@@ -584,11 +603,10 @@ def rand_shared(generator, spec: FieldSpec, shape=(), shares=None) -> MpcFp:
         if shares is not None:
             raise ValueError("spdz random shares come from the triple source")
         return c.triple_source.rand_shares(spec, shape)
-    if shares is not None:
-        assert shares.shape == party_shape(t, shape), shares.shape
-        return MpcFp(shares.to(t.device), SHARED)
-    sh = R.uniform_fp(generator, spec, party_shape(t, shape), device=t.device)
-    return MpcFp(sh, SHARED)
+    if shares is None:
+        shares = R.uniform_fp(generator, spec, stacked_shape(t, shape), device=t.device)
+    assert shares.shape == stacked_shape(t, shape), shares.shape
+    return MpcFp(t.own_rows(shares.to(t.device)), SHARED)
 
 
 def king_share(value: FpArray, generator, shares=None) -> MpcFp:
@@ -597,20 +615,20 @@ def king_share(value: FpArray, generator, shares=None) -> MpcFp:
     reference, one draw of [P, *shape] is made and row 0 is not used (the
     draws stand for a replicated key's outputs, so this is a test-net
     dealer, not private input sharing); under SPDZ every party knows the
-    value, so each forms its MAC share alpha_i * value.  ``shares``:
-    optional injected draws (FpArray [P, *shape]) in place of the
-    generator's."""
+    value, so each forms its MAC share alpha_i * value.  A socket party
+    keeps its row of the dealing.  ``shares``: optional injected draws
+    (FpArray [P, *shape]) in place of the generator's."""
     c = ctx()
     t = c.transport
     spec = value.spec
     batch = tuple(value.shape)
     if shares is None:
-        shares = R.uniform_fp(generator, spec, party_shape(t, batch), device=t.device)
-    assert shares.shape == party_shape(t, batch), shares.shape
+        shares = R.uniform_fp(generator, spec, stacked_shape(t, batch), device=t.device)
+    assert shares.shape == stacked_shape(t, batch), shares.shape
     shares = shares.to(t.device)
     value = value.to(t.device)
     leader = value - _sum_axis0(shares[1:])
-    sh = FpArray.concat([leader.reshape((1,) + batch), shares[1:]], axis=0)
+    sh = t.own_rows(FpArray.concat([leader.reshape((1,) + batch), shares[1:]], axis=0))
     mac = None
     if c.backend == "spdz":
         vparty = FpArray(_rebroadcast(t, value.limbs), spec, value.bound)

@@ -71,7 +71,8 @@ class MpcTEPoint:
 
     def reveal_affine_ints(self):
         """Open and normalize to affine ints; one entry per batch element
-        (party 0's replicated copy)."""
+        (the first row's replicated copy: party 0's on the stacked
+        transport, the party's own on a socket)."""
         zi = self.z.reveal().inv()
         ax = np.asarray((self.x.reveal() * zi).to_ints()[0]).reshape(-1)
         ay = np.asarray((self.y.reveal() * zi).to_ints()[0]).reshape(-1)

@@ -1,10 +1,13 @@
 """Party transport: the collective layer the MPC protocols speak through.
 
-Port of the stacked half of ``zkmpc_tpu/parallel/transport.py``.  In
-``StackedTransport`` all parties live in one device tensor with a leading
-party axis P (the analogue of the reference's in-process ``LocalTestNet``),
-so share openings are axis-0 reductions on one device.  Protocol code
-fetches the ambient transport from a context variable.
+Port of ``zkmpc_tpu/parallel/transport.py``.  Every share tensor has a
+leading party axis of length ``rows``.  In ``StackedTransport`` all parties
+live in one device tensor (``rows == n_parties``, the analogue of the
+reference's in-process ``LocalTestNet``), so share openings are axis-0
+reductions on one device.  ``parallel.native_net.SocketTransport`` runs one
+party per process over the TCP mesh: the axis keeps length 1, the party's
+own row.  Protocol code fetches the ambient transport from a context
+variable.
 """
 
 from __future__ import annotations
@@ -36,26 +39,75 @@ class CommStats:
 
 
 class Transport:
-    """Interface for the party-collective layer."""
+    """Interface for the party-collective layer.
 
+    ``n_parties`` is the protocol's party count; ``rows`` the length of
+    every share tensor's leading axis (the parties this process holds,
+    ``row_ids``)."""
+
+    kind: str
     n_parties: int
+    rows: int
     device: torch.device
 
     def __init__(self):
         self.stats = CommStats()
 
     def psum(self, x):
-        """Sum an identically-shaped tensor over all parties."""
+        """Sum a [rows, ...] tensor over all parties (every row gets the
+        sum)."""
         raise NotImplementedError
 
     def all_gather(self, x):
-        """Gather per-party tensors into a leading party axis [P, ...]."""
+        """[rows, ...] -> [rows, P, ...]: each row sees every party's
+        tensor on a holder axis."""
         raise NotImplementedError
 
     def party_index(self, batch_ndim: int):
-        """Party id, shaped to broadcast against [*(stacked P), batch...]."""
+        """The ids of the rows held, shaped [rows, 1 * batch_ndim]."""
         raise NotImplementedError
 
+    @property
+    def row_ids(self) -> list:
+        """The party ids of the rows this process holds, in order."""
+        raise NotImplementedError
+
+    def party_id_scalar(self) -> int:
+        """This process's party id, where it plays one party (a socket
+        party); a process that plays several raises."""
+        ids = self.row_ids
+        if len(ids) != 1:
+            raise ValueError(f"this process plays parties {ids}, not one")
+        return ids[0]
+
+    @property
+    def holds_all_rows(self) -> bool:
+        """Whether this process holds every party's row (the stacked
+        layout): an opening of a point share is then a local fold, and a
+        party-shaped input needs no owner's row picked out."""
+        return self.rows == self.n_parties
+
+    def holds(self, party: int) -> bool:
+        """Whether this process plays ``party``."""
+        return party in self.row_ids
+
+    def own_rows(self, x):
+        """This process's rows of a tensor drawn for every party
+        ([n_parties, ...], a tensor, FpArray or SWPoint): every random draw
+        is made at the stacked shape, and a party keeps its own row."""
+        raise NotImplementedError
+
+    def leader_mask(self, batch_ndim: int):
+        """True on the leader's (party 0's) row."""
+        return self.party_index(batch_ndim) == 0
+
+    def atomic_broadcast(self, x):
+        """Equivocation-free broadcast of per-party values, shaped as
+        `all_gather`'s result.  On the stacked transport it is structural:
+        every row sees the one gathered tensor, so no party can send
+        different values to different peers; the socket transport runs the
+        commit-then-open round."""
+        return self.all_gather(x)
 
 
 class StackedTransport(Transport):
@@ -66,7 +118,15 @@ class StackedTransport(Transport):
     def __init__(self, n_parties: int, device="cuda"):
         super().__init__()
         self.n_parties = n_parties
+        self.rows = n_parties
         self.device = torch.device(device)
+
+    @property
+    def row_ids(self) -> list:
+        return list(range(self.n_parties))
+
+    def own_rows(self, x):
+        return x
 
     def psum(self, x):
         self.stats.record(x)
