@@ -37,7 +37,12 @@ proofs (`werewolf_cli.run_scripted`).  Phase 10 runs the online binary in
 socket mode over phase 8's files: three OS processes on the card, one a
 party (``python -m zkmpc_tpu_torch.cli.online ... --id i --addrs F``)
 over the native TCP mesh, with Marlin and with Groth16; each must verify,
-and the three proofs must equal phase 8's stacked proof.
+and the three proofs must equal each other; the Marlin processes take
+phase 8's private seeds and must give its stacked proof, the Groth16
+processes draw their private seeds from their own entropy.  Phase 11
+drives the last single-device modules: multiplicative shares, shared
+bytes, a byte circuit proved with Groth16, modulus conversion, the
+Edwards ops and `te_msm`, and the SW tree reduction, under the timer.
 
     python3 chip_smoke.py              # needs one CUDA card
     python3 chip_smoke.py --gates 64   # a quicker main-path run
@@ -1143,9 +1148,10 @@ def phase_marlin(out, slots=1024, n_parties=3):
     preprocessing, verification and a wrong instance rejected; under
     SPDZ both MAC checks pass with residues, the G1 queue holding Marlin's
     opened commitments); then the online binary, `cli.online.run` on the
-    stacked transport over those runs' online_setup.json files: MyCircuit
-    proved with Marlin over the semi-honest run's files and with Groth16
-    over the SPDZ run's, each verified and a wrong instance rejected.  The
+    stacked transport over those runs' online_setup.json files, the parties'
+    private seeds `ONLINE_PRIVATE_SEEDS`: MyCircuit proved with Marlin over
+    the semi-honest run's files and with Groth16 over the SPDZ run's, each
+    verified and a wrong instance rejected.  The
     kernel counts are reset just before each run and read just after.  The
     runs' files stay in the directory ``out`` for phase 10.  Returns the
     launches and, by zksnark, the online run's setup directory and
@@ -1201,7 +1207,8 @@ def phase_marlin(out, slots=1024, n_parties=3):
     for zksnark, backend in (("marlin", "semi"), ("groth16", "spdz")):
         report = {}
         ok, launches, peak, wall = counted(lambda: ON.run(
-            inputs, dirs[backend], n_parties, zksnark=zksnark, device=dev, report=report))
+            inputs, dirs[backend], n_parties, zksnark=zksnark, device=dev, report=report,
+            private_seeds=ONLINE_PRIVATE_SEEDS[:n_parties]))
         what = f"online --zksnark {zksnark} (the {backend} run's online_setup.json)"
         if not (ok and report["verified"] and report["wrong_instance_rejected"]):
             raise AssertionError(f"phase 8 {what}: verification failed ({report})")
@@ -1239,18 +1246,26 @@ def _free_ports(n):
 
 #: the per-party seconds of an online run, in order
 ONLINE_TIMES = ("input_s", "synthesis_s", "setup_s", "prove_s", "verify_s")
+#: the parties' private seeds of phase 8's online runs and phase 10's
+#: Marlin processes (phase 10's Groth16 processes draw their own)
+ONLINE_PRIVATE_SEEDS = [101, 102, 103]
+#: the zksnarks whose phase 10 processes take phase 8's private seeds
+SEEDED_ZKSNARKS = ("marlin",)
 
 
 def phase_socket(online, workdir, timeout=300):
     """Phase 10: the online binary in socket mode, one OS process a party on
     the card (`python -m zkmpc_tpu_torch.cli.online ... --id i --addrs F`,
     an address file of free localhost ports), over phase 8's files and at
-    its seed: MyCircuit with Marlin over the semi-honest run's files and
-    with Groth16 over the SPDZ run's.  Every process must exit 0 within
-    ``timeout`` seconds, verify and reject a wrong instance, give the proof
-    of the other parties and of phase 8's stacked run (``online``: by
-    zksnark, its setup directory and report), launch K1, K2 and, for
-    Groth16, K3, and import nothing of JAX or the JAX package.  Each
+    its public seed: MyCircuit with Marlin over the semi-honest run's files,
+    each process given its party's private seed of phase 8
+    (``--private-seed``), and with Groth16 over the SPDZ run's, each
+    process drawing its private seed from its own entropy.  Every process
+    must exit 0 within ``timeout`` seconds, verify and reject a wrong
+    instance, give the proof of the other parties and, with phase 8's
+    seeds, of phase 8's stacked run (``online``: by zksnark, its setup
+    directory and report), launch K1, K2 and, for Groth16, K3, and import
+    nothing of JAX or the JAX package.  Each
     process counts its own launches from its start.  Logs per party the
     seconds of input, synthesis, setup, prove and verify, the openings,
     the mesh's bytes and broadcasts, peak device memory and the launches,
@@ -1268,12 +1283,14 @@ def phase_socket(online, workdir, timeout=300):
         logs = [os.path.join(workdir, f"socket_{zksnark}_{i}.log") for i in range(n)]
         t0 = time.time()
         procs = []
+        seeded = zksnark in SEEDED_ZKSNARKS
         for i in range(n):
             with open(logs[i], "w") as log_f:
                 procs.append(subprocess.Popen(
                     [sys.executable, "-m", "zkmpc_tpu_torch.cli.online", inputs, "--outdir",
                      setup_dir, "--id", str(i), "--addrs", addrs, "--zksnark", zksnark,
-                     "--seed", "0", "--device", DEVICE, "--report", reports[i]],
+                     "--seed", "0", "--device", DEVICE, "--report", reports[i]]
+                    + (["--private-seed", str(ONLINE_PRIVATE_SEEDS[i])] if seeded else []),
                     cwd=ROOT, stdout=log_f, stderr=subprocess.STDOUT))
         try:
             rcs = [p.wait(timeout=max(1.0, t0 + timeout - time.time())) for p in procs]
@@ -1292,16 +1309,21 @@ def phase_socket(online, workdir, timeout=300):
         for path in reports:
             with open(path) as f:
                 got.append(json.load(f))
-        want = json.loads(json.dumps(stacked["proof"]))
+        want = json.loads(json.dumps(stacked["proof"])) if seeded else got[0]["proof"]
+        mode = ("phase 8's private seeds" if seeded
+                else "private seeds from each process's own entropy")
         for i, r in enumerate(got):
             bad = sorted(m for m in r["modules"] if m in ("jax", "jaxlib", "zkmpc_tpu"))
             if bad:
                 raise AssertionError(f"{what}: party {i} imported {bad}")
             if not (r["verified"] and r["wrong_instance_rejected"]) or r["c"] != stacked["c"]:
                 raise AssertionError(f"{what}: party {i} did not verify ({r})")
+            if r["private_seeds"] != ("given" if seeded else "own entropy"):
+                raise AssertionError(f"{what}: party {i} ran with {r['private_seeds']} seeds")
             if r["proof"] != want:
-                raise AssertionError(f"{what}: party {i}'s proof differs from phase 8's "
-                                     f"stacked proof")
+                raise AssertionError(f"{what}: party {i}'s proof differs from "
+                                     + ("phase 8's stacked proof" if seeded
+                                        else "party 0's"))
             need = ["mont_mul", "point_add_g1"] + (["point_add_g2"] if zksnark == "groth16"
                                                   else [])
             if min(r["launches"].get(k, 0) for k in need) <= 0:
@@ -1309,9 +1331,10 @@ def phase_socket(online, workdir, timeout=300):
                                      f"({r['launches']})")
             for k, v in r["launches"].items():
                 total[k] = total.get(k, 0) + v
-        log(f"{what}: all exit 0 in {wall:.2f} s wall-clock; every party verifies and rejects "
-            f"a wrong instance; the {n} proofs equal each other and phase 8's stacked proof; "
-            f"no process imported JAX or the JAX package")
+        log(f"{what}, {mode}: all exit 0 in {wall:.2f} s wall-clock; every party verifies "
+            f"and rejects a wrong instance; the {n} proofs equal each other"
+            + (" and phase 8's stacked proof" if seeded else "")
+            + "; no process imported JAX or the JAX package")
         for i, r in enumerate(got + [stacked]):
             who = f"party {i}" if i < n else "stacked (phase 8)"
             net = r.get("net")
@@ -1562,6 +1585,237 @@ def phase_werewolf(slots=1024, n_parties=3):
     return total
 
 
+#: the sampled positions at which phase 11 checks a batch against host ints
+SAMPLES = 16
+#: phase 11's sizes: MpcMulFp factors a party, shared bytes, bytes of each
+#: string of the byte circuit, converted values, te_msm points,
+#: te_tree_reduce points, sw_tree_reduce G1 and G2 points
+MODULE_SIZES = dict(factors=1 << 14, bytes=4096, circuit_bytes=32, converted=1024,
+                    te_msm=256, te_reduce=4096, g1=4096, g2=1024)
+
+
+def _sample(n, rng):
+    return sorted(rng.sample(range(n), min(SAMPLES, n)))
+
+
+def phase_modules(n_parties=3, seed=11):
+    """Phase 11: the last single-device modules on the card, each checked at
+    sampled positions against Python ints or `spec/curves.py`, under
+    `utils.timer.timed` (its records printed at the end), each logging its
+    seconds, its launches by kernel and its peak device memory:
+    (a) `MpcMulFp` at `n_parties` parties over FR and FQ, [2^14] random
+    factors a party: reveal, local mul, inv, pow, scale, reveal again, and
+    `+` raising; (b) `MpcU8` on 4,096 shared bytes: xor, and, or, not;
+    (c) a byte circuit proved with Groth16: two 32-byte strings shared by
+    parties 0 and 1 through `input_share`, allocated with
+    `UInt8.new_witness_vec`, a.xor(b) equal to a public 32-byte instance,
+    and `is_eq`, `rotr`, `shl` and `to_fp` of a few bytes; device setup,
+    prove, verify and a wrong instance rejected; (d) `modulus_conversion`
+    of [1,024] shared FR values below 2^250 to EDFR and to FQ, and of a
+    public value; (e) `te_msm` of 256 Ed-on-BLS12-377 points with 251-bit
+    scalars, `te_tree_reduce` of 4,096 points, `sw_tree_reduce` of 4,096
+    G1 and 1,024 G2 points.  Every private draw comes from the parties'
+    own generators (`mpc.rand.PartyGenerators`); the sizes are
+    `MODULE_SIZES`.  Returns the launches."""
+    import torch
+    from zkmpc_tpu_torch import inputs as IN
+    from zkmpc_tpu_torch.mpc import rand as R
+    from zkmpc_tpu_torch.mpc.mul_share import MpcMulFp
+    from zkmpc_tpu_torch.mpc.share import MpcContext, MpcFp, king_share, modulus_conversion, \
+        mpc_scope
+    from zkmpc_tpu_torch.mpc.uint8 import MpcU8
+    from zkmpc_tpu_torch.ops import build as K
+    from zkmpc_tpu_torch.ops import curve as C
+    from zkmpc_tpu_torch.ops import msm as M
+    from zkmpc_tpu_torch.ops.limbs import EDFR, FQ, FR, FpArray
+    from zkmpc_tpu_torch.parallel.transport import StackedTransport
+    from zkmpc_tpu_torch.snark import groth16
+    from zkmpc_tpu_torch.snark.gadgets import FpVar
+    from zkmpc_tpu_torch.snark.r1cs import ConstraintSystem
+    from zkmpc_tpu_torch.snark.uint8_gadget import UInt8
+    from zkmpc_tpu_torch.spec import curves as SC
+    from zkmpc_tpu_torch.utils import timer
+    dev = torch.device(DEVICE)
+    rng = random.Random(seed)
+    size = MODULE_SIZES
+    total = {}
+    timer.reset()
+
+    def scope():
+        t = StackedTransport(n_parties, dev)
+        return mpc_scope(MpcContext(t, "semi")), R.PartyGenerators.for_transport(
+            t, [rng.getrandbits(63) for _ in range(n_parties)])
+
+    def ints(fp):
+        return [int(v) for v in fp.to_ints().reshape(-1)]
+
+    def fp(spec, vals):
+        return FpArray.from_int(spec, vals, device=dev)
+
+    def item(name, fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launches()
+        t0 = time.time()
+        with timer.timed(f"phase 11 {name}", enabled=False):
+            what = fn()
+            torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = dict(K.LAUNCHES)
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        peak = torch.cuda.max_memory_allocated()
+        log(f"phase 11 {name}: {what}; {wall:.2f} s, peak device memory {peak} B "
+            f"({peak / 2**30:.2f} GiB); {_kernel_counts(launches)}")
+
+    def mul_share():
+        n = size["factors"]
+        for spec in (FR, FQ):
+            ctx, gens = scope()
+            with ctx:
+                fa = [[rng.randrange(1, spec.p) for _ in range(n)] for _ in range(n_parties)]
+                k = [rng.randrange(1, spec.p) for _ in range(n)]
+                x = MpcMulFp.from_shares(fp(spec, fa))
+                y = MpcMulFp.from_public(fp(spec, k))
+                outs = [x.reveal(), (x * y).reveal(), x.inv().reveal(),
+                        x.pow_const(65537).reveal(), x.scale(fp(spec, k)).reveal()]
+                try:
+                    x + x
+                    raise AssertionError("phase 11: + on multiplicative shares did not raise")
+                except NotImplementedError:
+                    pass
+            p = spec.p
+            for j in _sample(n, rng):
+                v = 1
+                for row in fa:
+                    v = v * row[j] % p
+                got = [int(o[(0, j)].to_ints()) for o in outs]
+                want = [v, v * k[j] % p, pow(v, -1, p), pow(v, 65537, p), v * k[j] % p]
+                if got != want:
+                    raise AssertionError(f"phase 11 MpcMulFp {spec.name} at {j}: {got} != {want}")
+        return (f"MpcMulFp at {n_parties} parties over FR and FQ, [{n}] factors a party: "
+                f"reveal, mul, inv, pow, scale open to the host's products at {SAMPLES} "
+                f"sampled positions; + raises")
+
+    def uint8():
+        n = size["bytes"]
+        a_v = [rng.randrange(256) for _ in range(n)]
+        b_v = [rng.randrange(256) for _ in range(n)]
+        ctx, gens = scope()
+        with ctx:
+            a, b = (MpcU8(king_share(fp(FR, [[(v >> j) & 1 for j in range(8)] for v in vs]),
+                                     gens)) for vs in (a_v, b_v))
+            got = [u.reveal_ints() for u in (a.xor(b), a.and_(b), a.or_(b), a.not_())]
+        for j in _sample(n, rng):
+            want = [a_v[j] ^ b_v[j], a_v[j] & b_v[j], a_v[j] | b_v[j], a_v[j] ^ 0xFF]
+            if [g[j] for g in got] != want:
+                raise AssertionError(f"phase 11 MpcU8 at {j}: {[g[j] for g in got]} != {want}")
+        return f"MpcU8 on {n} shared bytes: xor, and, or, not open to the host's bytes"
+
+    def byte_circuit():
+        n = size["circuit_bytes"]
+        a_v = [rng.randrange(256) for _ in range(n)]
+        b_v = [rng.randrange(256) for _ in range(n)]
+        b_v[3] = a_v[3]
+        ctx, gens = scope()
+        syn, prv = gens.stream(1), gens.stream(2)
+        with ctx as c:
+            t0 = time.time()
+            a_w, b_w = (IN.input_share(fp(FR, vs), owner, gens)
+                        for owner, vs in enumerate((a_v, b_v)))
+            cs = ConstraintSystem(FR)
+            xs = [FpVar.new_input(cs, MpcFp.const(FR, x ^ y)) for x, y in zip(a_v, b_v)]
+            a = UInt8.new_witness_vec(cs, a_w, syn)
+            b = UInt8.new_witness_vec(cs, b_w, syn)
+            for i in range(n):
+                a[i].xor(b[i]).to_fp().enforce_equal(xs[i])
+            a[3].is_eq(b[3], syn).enforce_true()
+            a[0].rotr(3).to_fp().enforce_equal(FpVar.constant(
+                cs, ((a_v[0] >> 3) | (a_v[0] << 5)) & 0xFF))
+            a[1].shl(2).enforce_equal(UInt8.constant(cs, (a_v[1] << 2) & 0xFF))
+            a[2].to_fp().enforce_equal(FpVar.new_witness(cs, a_w[2]))
+            torch.cuda.synchronize()
+            t_syn = time.time() - t0
+            if not cs.is_satisfied_ints():
+                raise AssertionError("phase 11: the byte circuit is not satisfied")
+            inst = cs.instance_ints()
+            t0 = time.time()
+            dpk = groth16.device_setup(cs, seed=seed, device=dev)
+            torch.cuda.synchronize()
+            t_setup = time.time() - t0
+            t0 = time.time()
+            proof = groth16.proof_to_ints(groth16.prove(dpk, cs, prv))
+            torch.cuda.synchronize()
+            t_prove = time.time() - t0
+            bad = list(inst)
+            bad[1] = (bad[1] + 1) % FR.p
+            if not groth16.verify(dpk.pk.vk, inst, proof) or groth16.verify(dpk.pk.vk, bad,
+                                                                            proof):
+                raise AssertionError("phase 11: the byte circuit's proof failed to verify or "
+                                     "verified a wrong instance")
+            openings = c.transport.stats.rounds
+        return (f"byte circuit (2 x {n} bytes input-shared by parties 0 and 1, xor against "
+                f"a public {n}-byte instance, is_eq, rotr, shl, to_fp): "
+                f"{len(cs.constraints)} constraints, {cs.num_instance} instance values, "
+                f"domain {dpk.pk.domain_n}; synthesis {t_syn:.2f} s, setup {t_setup:.2f} s, "
+                f"prove {t_prove:.2f} s, {openings} openings; the proof verifies, a wrong "
+                f"instance is rejected")
+
+    def conversion():
+        n = size["converted"]
+        vals = [rng.getrandbits(250) for _ in range(n)]
+        ctx, gens = scope()
+        with ctx:
+            x = king_share(fp(FR, vals), gens)
+            outs = [modulus_conversion(x, EDFR, gens), modulus_conversion(x, FQ, gens)]
+            got = [ints(o.reveal()[0]) for o in outs]
+            pub = ints(modulus_conversion(MpcFp.const(FR, vals[:4]), EDFR, gens).value[0])
+        for j in _sample(n, rng):
+            want = [vals[j] % EDFR.p, vals[j] % FQ.p]
+            if [g[j] for g in got] != want:
+                raise AssertionError(f"phase 11 modulus_conversion at {j}")
+        if pub != [v % EDFR.p for v in vals[:4]]:
+            raise AssertionError("phase 11 modulus_conversion of a public value")
+        return (f"modulus_conversion of [{n}] shared FR values below 2^250 to EDFR and FQ, "
+                f"and of a public value, open to the host's residues")
+
+    def curves():
+        G = C.TEPoint.from_affine_ints([SC.TE_GEN], dev)
+        ks = [rng.randrange(1, EDFR.p) for _ in range(size["te_reduce"])]
+        pts = C.te_scalar_mul(G[0], fp(EDFR, ks))                        # k_i * G
+        for j in _sample(len(ks), rng)[:4]:
+            if pts[j:j + 1].to_affine_ints() != [SC.te_scalar_mul(SC.TE_GEN, ks[j])]:
+                raise AssertionError(f"phase 11 te_scalar_mul at {j}")
+        ss = [rng.getrandbits(251) % EDFR.p for _ in range(size["te_msm"])]
+        msm = M.te_msm(pts[:len(ss)], fp(EDFR, ss)).reshape(1).to_affine_ints()
+        want = SC.te_scalar_mul(SC.TE_GEN, sum(s * k for s, k in zip(ss, ks)) % EDFR.p)
+        if msm != [want]:
+            raise AssertionError("phase 11 te_msm")
+        red = C.te_tree_reduce(pts).reshape(1).to_affine_ints()
+        if red != [SC.te_scalar_mul(SC.TE_GEN, sum(ks) % EDFR.p)]:
+            raise AssertionError("phase 11 te_tree_reduce")
+        for name, n, mk, gen_pt, mul in (
+                ("G1", size["g1"], C.SWPoint.g1_from_affine_ints, SC.G1_GEN, SC.g1_mul),
+                ("G2", size["g2"], C.SWPoint.g2_from_affine_ints, SC.G2_GEN, SC.g2_mul)):
+            ks = [rng.randrange(1, FR.p) for _ in range(n)]
+            pts = C.sw_scalar_mul(mk([gen_pt], dev)[0], fp(FR, ks))
+            got = C.sw_tree_reduce(pts).reshape(1).to_affine_ints()
+            if got != [mul(gen_pt, sum(ks) % FR.p)]:
+                raise AssertionError(f"phase 11 sw_tree_reduce on {name}")
+        return (f"te_msm of {size['te_msm']} points with 251-bit scalars and te_tree_reduce "
+                f"of {size['te_reduce']} points equal the spec's multiples of the generator; "
+                f"sw_tree_reduce of {size['g1']} G1 and {size['g2']} G2 points likewise")
+
+    for name, fn in (("(a) MpcMulFp", mul_share), ("(b) MpcU8", uint8),
+                     ("(c) byte circuit, Groth16", byte_circuit),
+                     ("(d) modulus_conversion", conversion),
+                     ("(e) Edwards and tree reductions", curves)):
+        item(name, fn)
+    log("phase 11 (f) timer records: " + "; ".join(
+        f"{'  ' * d}{label} {dt:.3f} s" for d, label, dt in timer.records()))
+    return total
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--gates", type=int, default=16381,
@@ -1595,7 +1849,8 @@ def main(argv=None):
         marlin, online = timed("8", phase_marlin, work)
         werewolf = timed("9", phase_werewolf)
         socket = timed("10", phase_socket, online, work)
-    paths = (wide, ped, main_bin, spdz, marlin, werewolf, socket)
+    modules = timed("11", phase_modules)
+    paths = (wide, ped, main_bin, spdz, marlin, werewolf, socket, modules)
     log("seconds by phase: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
     launches = {k: sum(p.get(k, 0) for p in paths) for k in set().union(*paths)}
     bad = sorted(m for m in sys.modules if m in ("jax", "zkmpc_tpu")

@@ -193,8 +193,9 @@ def test_port_never_imports_jax():
     interpreter, loads no part of JAX and no module of the JAX package; the
     modules include the SHE layer, the run configuration, the hex-JSON
     files, the ark blob, the committed-input circuit, the `main` binary,
-    KZG and Marlin, the inputs, ElGamal, MyCircuit, the online binary and
-    the socket transport."""
+    KZG and Marlin, the inputs, ElGamal, MyCircuit, the online binary, the
+    socket transport, the multiplicative shares, the shared bytes and their
+    gadget, and the timer."""
     code = (
         "import pkgutil, sys, importlib\n"
         "import zkmpc_tpu_torch as P\n"
@@ -203,11 +204,12 @@ def test_port_never_imports_jax():
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'zkmpc_tpu')\n"
         "             or m.startswith(('jax.', 'jaxlib', 'zkmpc_tpu.')))\n"
-        "assert len(mods) >= 53, mods\n"
+        "assert len(mods) >= 57, mods\n"
         "new = {'she.ring', 'she.bgv', 'she.preprocessing', 'config', 'utils.serialize',\n"
         "       'circuits.input_circuit', 'cli.main', 'compat.ark', 'snark.kzg',\n"
         "       'snark.marlin', 'inputs', 'crypto.elgamal', 'circuits.my_circuit',\n"
-        "       'cli.online', 'parallel.native_net'}\n"
+        "       'cli.online', 'parallel.native_net', 'mpc.mul_share', 'mpc.uint8',\n"
+        "       'snark.uint8_gadget', 'utils.timer'}\n"
         "assert {'zkmpc_tpu_torch.' + m for m in new} <= set(mods), mods\n"
         "assert not bad, bad\n"
         "print('ok', len(mods))\n")

@@ -12,15 +12,21 @@ is joined with a timeout.
 - (b) A mixed mesh: party 0 is the JAX package's `NativeMeshNet` /
   `SocketTransport`, parties 1-2 the port's; a byte broadcast, a reveal and
   a Beaver multiply on dummy triples give every party the same values.
-- (c) With the same generator seeds, party i's socket tensors are row i of
-  the stacked run's, and the opened values are the stacked run's.
+- (c) With the same private seeds (`mpc.rand.PartyGenerators`), party i's
+  socket tensors are row i of the stacked run's, and the opened values are
+  the stacked run's, at every private draw site: `rand_shared` (Groth16's
+  r and s), `king_share`, `bit_rand` and the bit protocols, `input_share`,
+  Marlin's masks, and over them `MpcMulFp`, `MpcU8` and
+  `modulus_conversion`.  With party 1's private seed changed alone, party
+  1's rows change and every opened value stays; a replicated
+  ``torch.Generator`` is refused for a private draw on a socket.
 - (d) The online input protocol over the mesh, each party holding only its
   own ``online_setup.json``: the shares are `input_with_r`'s rows and the
   JAX binary's formula; a tampered bracket-MAC share raises at the owner
   and the other parties fail without hanging; the binary's process exits
   nonzero when its peer dies; the socket flags are checked.
 - (e) `slow`: `cli.online.run` over the mesh on the CPU with Groth16 gives
-  the stacked run's proof.
+  the stacked run's proof under the same private seeds.
 """
 
 import hashlib
@@ -38,13 +44,18 @@ import torch
 
 from test_torch_online import _jax_formula, write_setups
 from torch_parity import CPU
+from zkmpc_tpu_torch import inputs as IN
 from zkmpc_tpu_torch.cli import online as ON
 from zkmpc_tpu_torch.mpc import bits as B
+from zkmpc_tpu_torch.mpc import rand as R
 from zkmpc_tpu_torch.mpc.group import MpcSWPoint
+from zkmpc_tpu_torch.mpc.mul_share import MpcMulFp
 from zkmpc_tpu_torch.mpc.share import (SHARED, MpcContext, MpcFp, beaver_inv, king_share,
-                                       mpc_scope, rand_shared)
+                                       modulus_conversion, mpc_scope, rand_shared)
+from zkmpc_tpu_torch.mpc.uint8 import MpcU8
 from zkmpc_tpu_torch.ops.curve import SWPoint
-from zkmpc_tpu_torch.ops.limbs import FR, FpArray
+from zkmpc_tpu_torch.ops.limbs import EDFR, FR, FpArray
+from zkmpc_tpu_torch.snark import marlin
 from zkmpc_tpu_torch.parallel import transport as T
 from zkmpc_tpu_torch.parallel.native_net import NativeMeshNet, SocketTransport
 from zkmpc_tpu_torch.parallel.transport import StackedTransport
@@ -56,6 +67,8 @@ N = 3
 P = FR.p
 #: seconds a test waits for its parties
 TIMEOUT = 60
+#: the parties' private seeds of the online runs
+PRIVATE_SEEDS = [11, 12, 13]
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -297,8 +310,72 @@ def _ops():
         lt = B.bitwise_lt(a, b)
         return [(fp(lt.value), opened(lt.reveal())), (fp(a.value), opened(a.reveal()))]
 
+    def dealt_input(gen, owner=1):
+        t = T.current()
+        val = FpArray.from_int(FR, [9, P - 4], device=CPU) if t.holds(owner) else None
+        x = IN.input_share(val, owner, gen, shape=(2,))
+        return [(fp(x.value), opened(x.reveal()))]
+
+    def marlin_masks(gen):
+        zero = MpcFp.const(FR, [0] * 4)
+        m = marlin._sum_zero_mask(gen, 4)
+        c = marlin._mask_vh(zero, gen, 4)
+        return [(fp(m.value), opened(m.reveal())), (fp(c.value), opened(c.reveal()))]
+
+    def mul_share(gen):
+        f = rand_shared(gen, FR, (3,))
+        x = MpcMulFp.from_shares(f.value)
+        y = MpcMulFp.from_public(FpArray.from_int(FR, [2, 3, 4], device=CPU))
+        z = (x * y).square().scale(FpArray.from_int(FR, [5, 6, 7], device=CPU))
+        return [(fp(f.value), opened(x.reveal())), (fp(z.value), opened(z.reveal()))]
+
+    def uint8(gen):
+        vals = ([0xA5, 0x3C, 0x00], [0x0F, 0xFF, 0x81])
+        a, b = (MpcU8(king_share(FpArray.from_int(
+            FR, [[(v >> j) & 1 for j in range(8)] for v in vs], device=CPU), gen))
+            for vs in vals)
+        outs = [a.xor(b), a.and_(b), a.or_(b), a.not_()]
+        return [(fp(u.bits.value), u.reveal_ints()) for u in outs]
+
+    def convert(gen):
+        x = king_share(FpArray.from_int(FR, [5, (1 << 250) + 3], device=CPU), gen)
+        y = modulus_conversion(x, EDFR, gen)
+        return [(fp(y.value), opened(y.reveal()))]
+
     return dict(reveal=reveal, beaver=beaver, beaver_inv=inverse, rand_shared=random,
-                king_share=reveal, group_reveal=points, bit_rand=bitrand, bitwise_lt=compare)
+                king_share=reveal, group_reveal=points, bit_rand=bitrand, bitwise_lt=compare,
+                input_share=dealt_input, input_share_leader=lambda g: dealt_input(g, 0),
+                marlin_masks=marlin_masks, mul_share=mul_share, uint8=uint8,
+                modulus_conversion=convert)
+
+
+def _seeds(k, changed=None):
+    """Op k's private seeds by party; ``changed``: a party whose seed
+    differs."""
+    return {i: 1000 * k + i + (7 if i == changed else 0) for i in range(N)}
+
+
+def _play(scope, changed=None, names=None):
+    """Every op (or those ``names``) under a fresh MPC scope and its own
+    private seeds, on the transport ``scope`` opens."""
+    out = {}
+    for k, (name, op) in enumerate(_ops().items()):
+        if names is not None and name not in names:
+            continue
+        with scope() as c:
+            out[name] = op(R.PartyGenerators.for_transport(c.transport, _seeds(k, changed)))
+    return out
+
+
+def _socket_play(changed=None, names=None):
+    def party(i, net):
+        t = SocketTransport(net, CPU)
+        return _play(lambda: mpc_scope(MpcContext(t, "semi")), changed, names), t.stats.rounds
+    return run_ok(party)
+
+
+def _stacked_play(changed=None):
+    return _play(lambda: mpc_scope(MpcContext(StackedTransport(N, CPU), "semi")), changed)
 
 
 def _flat(xy):
@@ -307,26 +384,18 @@ def _flat(xy):
     return [v for c in xy for v in (c if isinstance(c, tuple) else (c,))]
 
 
-def test_socket_rows_equal_stacked_rows():
+@pytest.fixture(scope="module")
+def socket_base():
+    """Every op over the mesh under `_seeds`: (outputs, rounds) a party."""
+    return _socket_play()
+
+
+def test_socket_rows_equal_stacked_rows(socket_base):
     """For every op, party i's socket share tensor equals row i of the
-    stacked run's (the same generator seed), and the opened values are
+    stacked run's under the same private seeds, and the opened values are
     equal."""
-    ops = _ops()
-
-    def play(transport_scope):
-        out = {}
-        for k, (name, op) in enumerate(ops.items()):
-            with transport_scope():
-                out[name] = op(torch.Generator().manual_seed(100 + k))
-        return out
-
-    stacked = play(lambda: mpc_scope(MpcContext(StackedTransport(N, CPU), "semi")))
-
-    def party(i, net):
-        t = SocketTransport(net, CPU)
-        return play(lambda: mpc_scope(MpcContext(t, "semi"))), t.stats.rounds
-
-    results = run_ok(party)
+    stacked = _stacked_play()
+    results = socket_base
     for i, (got, _) in enumerate(results):
         for name, items in stacked.items():
             for (s_sh, s_open), (g_sh, g_open) in zip(items, got[name]):
@@ -344,7 +413,72 @@ def test_socket_rows_equal_stacked_rows():
     a_bits = stacked["bitwise_lt"][1][1]
     a_vals = [sum(b << j for j, b in enumerate(a_bits[8 * k:8 * k + 8])) for k in range(2)]
     assert stacked["bitwise_lt"][0][1] == [int(a_vals[0] < 9), int(a_vals[1] < 200)]
+    assert stacked["input_share"][0][1] == stacked["input_share_leader"][0][1] == [9, P - 4]
+    m, c = (o for _, o in stacked["marlin_masks"])
+    assert m[4] == (P - m[0]) % P and c[1:4] == [0] * 3 and c[0] == (P - c[4]) % P
+    f = stacked["mul_share"][0][1]
+    assert stacked["mul_share"][1][1] == [(v * k) ** 2 * s % P for v, k, s in
+                                          zip(f, (2, 3, 4), (5, 6, 7))]
+    a, b = [0xA5, 0x3C, 0x00], [0x0F, 0xFF, 0x81]
+    assert [o for _, o in stacked["uint8"]] == [
+        [x ^ y for x, y in zip(a, b)], [x & y for x, y in zip(a, b)],
+        [x | y for x, y in zip(a, b)], [x ^ 0xFF for x in a]]
+    assert stacked["modulus_conversion"][0][1] == [5, ((1 << 250) + 3) % EDFR.p]
     assert len({rounds for _, rounds in results}) == 1
+
+
+#: the ops whose rows hold party 1's own draws (input_share: party 1 owns
+#: and deals it), and those whose other rows are the other parties' own
+#: draws alone (`bit_rand`'s XOR tree mixes every party's bits into every
+#: row)
+_PARTY1_DRAWS = ("rand_shared", "bit_rand", "input_share")
+_OWN_ROW_DRAWS = ("rand_shared",)
+#: the ops whose opened values do not open a fresh random value
+_OPENED_STAY = ("beaver", "beaver_inv", "input_share", "input_share_leader", "uint8",
+                "modulus_conversion")
+
+
+def test_a_private_seed_moves_only_its_partys_rows(socket_base):
+    """Over the mesh, with every other party's private seed (and no public
+    seed at all) the same, a change of party 1's private seed changes
+    party 1's rows of `rand_shared`, `bit_rand` and `input_share` (owned
+    by party 1), leaves the other parties' `rand_shared` rows as they
+    were, and
+    every opened value that does not open a fresh random value (the
+    inputs, products, inverses, conversions, comparisons) stays the
+    same.  So no other process can recompute party 1's rows."""
+    base = socket_base
+    moved = _socket_play(changed=1, names=_PARTY1_DRAWS + _OPENED_STAY)
+    for name in _PARTY1_DRAWS:
+        assert not torch.equal(base[1][0][name][0][0], moved[1][0][name][0][0]), name
+    for name in _OWN_ROW_DRAWS:
+        for i in (0, 2):
+            assert torch.equal(base[i][0][name][0][0], moved[i][0][name][0][0]), (name, i)
+    for name in _OPENED_STAY:
+        for i in range(N):
+            assert [o for _, o in base[i][0][name]] == [o for _, o in moved[i][0][name]], name
+
+
+def test_replicated_generator_refused_on_a_socket():
+    """A replicated torch.Generator passed to a private draw on a socket
+    transport raises `ValueError` before anything goes on the wire; the
+    stacked transport still takes it."""
+    def party(i, net):
+        gen = torch.Generator().manual_seed(5)
+        raised = []
+        with _socket_scope(net):
+            for draw in (lambda: rand_shared(gen, FR, (2,)),
+                         lambda: king_share(FpArray.from_int(FR, [1], device=CPU), gen),
+                         lambda: B.bit_rand(gen, FR, (3,)),
+                         lambda: IN.input_share(FpArray.from_int(FR, [1], device=CPU)
+                                                if i == 0 else None, 0, gen, shape=(1,))):
+                with pytest.raises(ValueError, match="PartyGenerators"):
+                    draw()
+                raised.append(True)
+        return raised
+    assert run_ok(party) == [[True] * 4] * N
+    with mpc_scope(MpcContext(StackedTransport(N, CPU), "semi")):
+        assert rand_shared(torch.Generator().manual_seed(5), FR, (2,)).value.shape == (N, 2)
 
 
 # --------------------------------------------------- (d) the online input protocol
@@ -431,8 +565,9 @@ def test_input_protocol_over_the_mesh(tmp_path):
 @pytest.mark.slow
 def test_online_over_the_mesh_equals_stacked(tmp_path, monkeypatch):
     """`cli.online.run` as three mesh parties on the CPU with Groth16, each
-    reading only its own setup file: every party verifies, and the proof
-    is the stacked run's.  The MSMs take the ladder."""
+    reading only its own setup file and holding its own private seed:
+    every party verifies, and the proof is the stacked run's under the
+    same private seeds.  The MSMs take the ladder."""
     from torch_parity import fewer_attempts
     from zkmpc_tpu_torch.ops import msm
     monkeypatch.setattr(msm, "MIN_BUCKETED_POINTS", 1 << 30)
@@ -450,11 +585,12 @@ def test_online_over_the_mesh_equals_stacked(tmp_path, monkeypatch):
     def party(i):
         try:
             ON.run(str(inputs), dirs[i], party_id=i, addrs=str(addrs), zksnark="groth16",
-                   device=CPU, report=reports[i])
+                   device=CPU, report=reports[i], private_seeds=PRIVATE_SEEDS[i])
         except BaseException as e:
             errors[i] = e
     with fewer_attempts():
-        assert ON.run(str(inputs), str(base), zksnark="groth16", device=CPU, report=stacked)
+        assert ON.run(str(inputs), str(base), zksnark="groth16", device=CPU, report=stacked,
+                      private_seeds=PRIVATE_SEEDS)
         threads = [threading.Thread(target=party, args=(i,), daemon=True) for i in range(N)]
         for t in threads:
             t.start()

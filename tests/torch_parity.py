@@ -84,6 +84,15 @@ def point_to_jax(p: TC.SWPoint):
                       jnp.asarray(p.inf.numpy()))
 
 
+def te_point_to_torch(p) -> TC.TEPoint:
+    """JAX TEPoint -> port TEPoint (the same limbs and bounds)."""
+    return TC.TEPoint(*(fp_to_torch(c) for c in (p.x, p.y, p.t, p.z)))
+
+
+def te_point_to_jax(p: TC.TEPoint):
+    return JC.TEPoint(*(fp_to_jax(c) for c in p.coords()))
+
+
 def point_leaves_np(p) -> list:
     """Coordinate limbs (int64 numpy) and the infinity mask of a port point."""
     return [limbs_np(leaf) if leaf.dtype != torch.bool else leaf.numpy()

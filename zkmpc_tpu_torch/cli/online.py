@@ -18,16 +18,22 @@ reads only ``<outdir>/<i>/online_setup.json``, consults the inputs file
 only for its own input, and its shares cross the mesh.  Three such
 processes give the stacked run's proof.
 
-Socket mode is a test net, not private: every party's random shares (the
-zero-sum input masks, the bit protocols' masks and bits, Groth16's r and
-s) are rows of draws from generators seeded by the public ``--seed``, the
-JAX package's replicated key.  Any process can recompute every other
-party's shares, and through the circuit's bit decompositions the other
-parties' inputs.  Per-party private seeds are ROADMAP Queue 3 work.
+Every private draw of a party (its shares of random values, its random
+bits in the bit protocols, the masks it deals, its shares of Groth16's r
+and s and of Marlin's masks) comes from that party's own generators
+(`mpc.rand.PartyGenerators`), seeded from its private seed: by default
+the process's own entropy, or ``--private-seed`` (stacked: one a party,
+comma-separated; socket: the process's own).  A socket process holds
+only its own seed, so it cannot recompute another party's shares.  Under
+the same private seeds party i's socket tensors are row i of the stacked
+run's, and so the proofs are equal.  The public ``--seed`` makes what is
+common: the Pedersen parameters, the SRS or trapdoor (``seed + 1``) and
+the commitments' randomness ``ra`` and ``rb``, which the circuit takes
+as public constants, as in the JAX package (ROADMAP Queue 3).
 
 Usage: python -m zkmpc_tpu_torch.cli.online inputs.json [--outdir outputs]
        [--parties 3] [--id I --addrs FILE] [--zksnark marlin|groth16]
-       [--seed 0] [--device cuda] [--report FILE]
+       [--seed 0] [--private-seed S[,S...]] [--device cuda] [--report FILE]
 
     python -m zkmpc_tpu_torch.cli.online inputs.json --id 0 --addrs data/3 &
     python -m zkmpc_tpu_torch.cli.online inputs.json --id 1 --addrs data/3 &
@@ -50,6 +56,7 @@ import torch
 from .. import inputs as IN
 from ..circuits import my_circuit
 from ..crypto import pedersen
+from ..mpc import rand as R
 from ..mpc.share import SHARED, MpcContext, MpcFp, mpc_scope
 from ..ops import build as K
 from ..ops.limbs import FR, FpArray
@@ -62,8 +69,11 @@ from ..utils import serialize as SER
 #: randomness bits of each input's Pedersen commitment
 COM_BITS = 16
 
-# the generator streams of a run, each seeded from (seed, stream)
-_STREAMS = ("r", "synthesis", "prove")
+#: the public generator stream of a run, seeded from (seed, 0): the
+#: commitments' randomness
+_PUBLIC_STREAM = 0
+#: the private streams of a run, each party's seed hashed with the stream
+_SYNTHESIS_STREAM, _PROVE_STREAM = 1, 2
 
 #: wire size of a field element (384-bit little-endian, CanonicalSerialize-style)
 NB = 48
@@ -186,14 +196,18 @@ def _canonical(x):
 
 def run(inputs_path: str, outdir: str = "outputs", n_parties: int | None = None,
         party_id: int | None = None, addrs: str | None = None, zksnark: str = "marlin",
-        seed: int = 0, device="cuda", report: dict | None = None) -> bool:
+        seed: int = 0, device="cuda", report: dict | None = None,
+        private_seeds=None) -> bool:
     """The online binary's run; True if the proof verifies and a wrong
     instance is rejected.  ``party_id`` and ``addrs`` (an address file)
     run one party over the mesh; without them one process plays
     ``n_parties`` (default 3) on the stacked transport.  ``report``: a dict
     that receives the circuit's size, the input, synthesis, setup, prove
     and verify seconds (to a device synchronize), the openings, the proof
-    as canonical ints and, on the mesh, its byte and broadcast counters."""
+    as canonical ints and, on the mesh, its byte and broadcast counters.
+    ``private_seeds``: the private seeds of the parties this process plays
+    (stacked: one a party; socket: its own, an int or a one-item list); by
+    default each party's comes from the process's own entropy."""
     if zksnark not in ("marlin", "groth16"):
         raise SystemExit(f"unknown zksnark {zksnark!r}")
     if party_id is not None and addrs is None:
@@ -211,8 +225,9 @@ def run(inputs_path: str, outdir: str = "outputs", n_parties: int | None = None,
                              f"({len(addr_list)} parties)")
     dev = torch.device(device)
     rep = report if report is not None else {}
-    gens = {name: torch.Generator(dev).manual_seed((seed << 8) | k)
-            for k, name in enumerate(_STREAMS)}
+    public_gen = torch.Generator(dev).manual_seed((seed << 8) | _PUBLIC_STREAM)
+    if isinstance(private_seeds, int):
+        private_seeds = [private_seeds]
     with open(inputs_path) as f:
         doc = json.load(f)
     # party 0 owns x, party 1 owns y (`online.rs:87-125`); a party of the
@@ -228,6 +243,13 @@ def run(inputs_path: str, outdir: str = "outputs", n_parties: int | None = None,
         a_int = a_int if party_id == 0 else None
         b_int = b_int if party_id == 1 else None
         own = read_setup(outdir, party_id)
+    # each party's private generators, from its own seed (checked before
+    # the mesh comes up)
+    priv = R.PartyGenerators(range(n_parties) if party_id is None else [party_id],
+                             private_seeds, dev)
+    gens = dict(synthesis=priv.stream(_SYNTHESIS_STREAM), prove=priv.stream(_PROVE_STREAM))
+    rep["private_seeds"] = "own entropy" if private_seeds is None else "given"
+    if party_id is not None:
         net = NativeMeshNet(party_id, addr_list)
 
     def lap(name, t0):
@@ -252,7 +274,7 @@ def run(inputs_path: str, outdir: str = "outputs", n_parties: int | None = None,
             # (`input.rs:57-105`); the blinding bits come from the common seed
             pp = pedersen.PedersenParams.sample(seed)
             ra, rb = (int(v) for v in torch.randint(0, 1 << COM_BITS, (2,),
-                                                    generator=gens["r"], device=dev).tolist())
+                                                    generator=public_gen, device=dev).tolist())
             iwcs = []
             for owner, (x, x_int, r) in enumerate(((a, a_int, ra), (b, b_int, rb))):
                 com = (pedersen.commit_public_ints(pp, x_int, r) if net is None
@@ -319,7 +341,12 @@ def main(argv=None):
     ap.add_argument("--addrs", default=None,
                     help="address file, one host:port a party (socket mode)")
     ap.add_argument("--zksnark", choices=["marlin", "groth16"], default="marlin")
-    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--seed", type=int, default=0,
+                    help="the public seed: Pedersen parameters, SRS or trapdoor, the "
+                         "commitments' randomness")
+    ap.add_argument("--private-seed", default=None,
+                    help="the private seeds of the parties played, comma-separated (stacked: "
+                         "one a party; socket: this party's own); default: own entropy")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu for a run without a card)")
     ap.add_argument("--report", default=None,
@@ -328,7 +355,9 @@ def main(argv=None):
     args = ap.parse_args(argv)
     report = {}
     ok = run(args.inputs, args.outdir, args.parties, args.id, args.addrs, args.zksnark,
-             args.seed, args.device, report=report)
+             args.seed, args.device, report=report,
+             private_seeds=None if args.private_seed is None
+             else [int(v) for v in args.private_seed.split(",")])
     if args.report:
         report.update(launches=dict(K.LAUNCHES),
                       modules=sorted({m.split(".")[0] for m in sys.modules}))

@@ -11,8 +11,10 @@ as the reference does (`input.rs:86-100`).
 
 The batched werewolf inputs (`WerewolfKeyInput`, `input.rs:305-515`;
 `WerewolfMpcInput`, `input.rs:517-789`) carry one vector per field.
-Randomness comes from ``torch.Generator``s; `input_share`'s mask draws
-can be injected.
+Private draws come from the parties' own generators
+(`mpc.rand.PartyGenerators`), or from one replicated ``torch.Generator``
+where one process plays every party; `input_share`'s mask draws can be
+injected.
 """
 
 from __future__ import annotations
@@ -27,20 +29,22 @@ from . import params
 from .crypto import pedersen as PD
 from .mpc import bits as B
 from .mpc import rand as R
-from .mpc.share import SHARED, MpcFp, _rebroadcast, _sum_axis0, ctx
+from .mpc.share import SHARED, MpcFp, _rebroadcast, _sum_axis0, ctx, deal_fp
 from .ops.limbs import FR, FpArray
 
 
 def input_share(value: FpArray | None, owner: int, generator, mask: FpArray | None = None,
                 shape=None) -> MpcFp:
-    """Additive sharing where party ``owner`` contributes the value and every
-    party adds a zero-sum mask (the re-randomized form of `generate_share`,
-    `input.rs:808-830`): parties 0..P-2 hold uniform draws, the last minus
-    their sum, the owner adds the value.  Only a process that plays the
-    owner passes ``value``; on a socket every other party passes None and
-    the batch ``shape``.  On the stacked transport ``value`` may be
-    party-shaped [P, ...]: the owner's row is the one shared.  ``mask``:
-    optional injected draws [P-1, *batch] in place of the generator's."""
+    """Additive sharing where party ``owner`` contributes the value and a
+    zero-sum mask (the re-randomized form of `generate_share`,
+    `input.rs:808-830`): the owner draws P-1 uniform masks from its own
+    generator, parties 0..P-2 hold them, the last minus their sum, the
+    owner adds the value, and the owner deals each party its row in one
+    round (`share.deal_fp`).  Only a process that plays the owner passes
+    ``value``; on a socket every other party passes None and the batch
+    ``shape``.  On the stacked transport ``value`` may be party-shaped
+    [P, ...]: the owner's row is the one shared.  ``mask``: optional
+    injected draws [P-1, *batch] in place of the generator's."""
     c = ctx()
     t = c.transport
     if (value is None) == t.holds(owner):
@@ -55,20 +59,22 @@ def input_share(value: FpArray | None, owner: int, generator, mask: FpArray | No
             value = value[owner]
         batch = tuple(value.shape)
     if mask is None:
-        mask = R.uniform_fp(generator, spec, (t.n_parties - 1,) + batch, device=t.device)
-    mask = mask.to(t.device)
-    assert mask.shape == (t.n_parties - 1,) + batch, mask.shape
-    last = -_sum_axis0(mask)
-    base = t.own_rows(FpArray.concat([mask, last.reshape((1,) + batch)], axis=0))
-    zeros = FpArray.zeros(spec, base.shape, t.device)
-    add = zeros
+        mask = R.dealer_draw(generator, spec, t, owner, (t.n_parties - 1,) + batch)
+    rows = None
     if value is not None:
-        sel = (t.party_index(len(batch)) == owner).expand(base.shape)
-        add = FpArray.select(sel, value.broadcast_to(base.shape), zeros)
+        mask = mask.to(t.device)
+        assert mask.shape == (t.n_parties - 1,) + batch, mask.shape
+        last = -_sum_axis0(mask)
+        base = FpArray.concat([mask, last.reshape((1,) + batch)], axis=0)
+        zeros = FpArray.zeros(spec, base.shape, t.device)
+        ids = torch.arange(t.n_parties, device=t.device).reshape((-1,) + (1,) * len(batch))
+        add = FpArray.select((ids == owner).expand(base.shape),
+                             value.broadcast_to(base.shape), zeros)
+        rows = base + add
     mac = None
     if c.backend == "spdz":
         mac = FpArray(_rebroadcast(t, value.limbs), spec, value.bound) * c.alpha_for(len(batch))
-    return MpcFp(base + add, SHARED, mac)
+    return MpcFp(deal_fp(t, rows, owner, spec, batch), SHARED, mac)
 
 
 @dataclasses.dataclass

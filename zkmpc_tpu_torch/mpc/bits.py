@@ -32,6 +32,7 @@ import functools
 import torch
 
 from ..ops.limbs import FieldSpec, FpArray, W as LIMB_W
+from . import rand as R
 from .share import (PUBLIC, SHARED, MpcFp, _promote_to_shared, _sum_last_axis, ctx,
                     rand_shared)
 
@@ -207,10 +208,10 @@ def bit_rand(generator, spec: FieldSpec, shape=(), raw=None) -> MpcFp:
 
     Each party contributes a trivially shared private bit; a log-depth XOR
     tree of Beaver products combines them, so the result is uniform as long
-    as one party is honest.  The bits are drawn for every party, [P, *shape],
-    and a party keeps its own row.  ``raw``: optional injected bool tensor
-    [P, *shape] of the parties' bits in place of the generator's draws (the
-    reference draws party i's bits from ``fold_in(key, i)``).
+    as one party is honest.  Party i's bits come from its own generator
+    (`rand.bit_rows`).  ``raw``: optional injected bool tensor [P, *shape]
+    of the parties' bits in place of the generators' draws (the reference
+    draws party i's bits from ``fold_in(key, i)``).
 
     Under SPDZ the bits must be authenticated: they come from the <r> pool
     through the square-root trick (`bit_rand_sqrt`), every step of which
@@ -224,11 +225,11 @@ def bit_rand(generator, spec: FieldSpec, shape=(), raw=None) -> MpcFp:
     P_ = t.n_parties
     shape = tuple(shape)
     if raw is None:
-        raw = torch.rand((P_,) + shape, generator=generator,
-                         device=generator.device) < 0.5
-    raw = torch.as_tensor(raw, dtype=torch.bool).to(t.device)
-    assert tuple(raw.shape) == (P_,) + shape, raw.shape
-    raw = t.own_rows(raw)                                           # [rows, ...]
+        raw = R.bit_rows(generator, t, shape).to(t.device)          # [rows, ...]
+    else:
+        raw = torch.as_tensor(raw, dtype=torch.bool).to(t.device)
+        assert tuple(raw.shape) == (P_,) + shape, raw.shape
+        raw = t.own_rows(raw)
     one = spec.const("one_limbs", t.device)
     ids = t.party_index(len(shape))
     # contribution i: party i's row holds its bit, the other rows zero

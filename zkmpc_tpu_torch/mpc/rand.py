@@ -7,6 +7,14 @@ draws ``[..., nlimbs]`` the reference's ``_raw_half_range`` would draw, so
 a test gets the reference's field elements bit for bit.  `coin_toss` is
 the parties' commit-then-open toss for public randomness no party can
 predict (the MAC checks' weights).
+
+Private draws (a party's share of a random value, its random bits, the
+masks it deals) take `PartyGenerators`: one generator for each party the
+process plays, seeded from that party's own private seed, so party i's
+rows are the same whether one process plays every party or party i runs
+alone on a socket.  A single replicated ``torch.Generator`` stands for a
+key every party knows; only a transport that holds every row (one
+process playing all parties) accepts it for a private draw.
 """
 
 from __future__ import annotations
@@ -52,6 +60,106 @@ def uniform_fp(generator, spec: FieldSpec, shape=(), device="cuda",
     kconst = FpArray.from_int(spec, pow(2, W * spec.nlimbs - 1, spec.p),
                               device=device)
     return hi * kconst.broadcast_to(hi.shape) + lo
+
+
+class PartyGenerators:
+    """The private generators of the parties this process plays: party i's
+    is seeded from party i's own seed and makes every private draw of
+    party i's row.  ``seeds``: {party: int}, or a sequence in the order of
+    ``party_ids``; by default each seed is 63 bits of the process's own
+    entropy (`secrets`), which no other process can know."""
+
+    def __init__(self, party_ids, seeds=None, device="cuda"):
+        ids = list(party_ids)
+        if seeds is None:
+            seeds = {i: secrets.randbits(63) for i in ids}
+        elif not isinstance(seeds, dict):
+            seeds = list(seeds)
+            if len(seeds) != len(ids):
+                raise ValueError(f"{len(seeds)} private seeds for the {len(ids)} parties "
+                                 f"{ids}")
+            seeds = dict(zip(ids, seeds))
+        missing = [i for i in ids if i not in seeds]
+        if missing:
+            raise ValueError(f"no private seed for parties {missing}")
+        self.device = torch.device(device)
+        self.seeds = {i: int(seeds[i]) for i in ids}
+        self._gens = {i: torch.Generator(self.device).manual_seed(s & ((1 << 63) - 1))
+                      for i, s in self.seeds.items()}
+
+    @classmethod
+    def for_transport(cls, transport, seeds=None) -> "PartyGenerators":
+        """The generators of ``transport``'s rows, on its device."""
+        return cls(transport.row_ids, seeds, transport.device)
+
+    @property
+    def party_ids(self) -> list:
+        return list(self._gens)
+
+    def __getitem__(self, party: int) -> torch.Generator:
+        if party not in self._gens:
+            raise ValueError(f"party {party}'s private generator is not held here "
+                             f"(this process plays {self.party_ids})")
+        return self._gens[party]
+
+    def stream(self, k: int) -> "PartyGenerators":
+        """Independent generators for stream ``k`` of a run: each party's
+        seed hashed with k."""
+        return PartyGenerators(self.party_ids, {
+            i: int.from_bytes(hashlib.sha256(f"{s}:{k}".encode()).digest()[:8], "little") >> 1
+            for i, s in self.seeds.items()}, self.device)
+
+
+def _is_private(generator, transport) -> bool:
+    """Whether ``generator`` holds per-party generators (each row of
+    ``transport`` must be among them); a replicated generator is taken only
+    by a transport holding every row, since a socket party would otherwise
+    draw, and so know, every party's private values."""
+    if isinstance(generator, PartyGenerators):
+        for i in transport.row_ids:
+            generator[i]                    # raises for a party not held here
+        return True
+    if not transport.holds_all_rows:
+        raise ValueError("a private draw on a transport that plays one party takes that "
+                         "party's own generator (rand.PartyGenerators), not a replicated "
+                         "torch.Generator: a replicated generator lets every process "
+                         "recompute every party's draws")
+    return False
+
+
+def uniform_rows(generator, spec: FieldSpec, transport, shape=()) -> FpArray:
+    """This process's rows [rows, *shape] of a private uniform draw made for
+    every party: party i's row from its own generator, or, with a
+    replicated generator (a transport holding every row), rows of one
+    [P, *shape] draw."""
+    shape = tuple(shape)
+    dev = transport.device
+    if not _is_private(generator, transport):
+        return uniform_fp(generator, spec, (transport.n_parties,) + shape, device=dev)
+    return FpArray.concat([uniform_fp(generator[i], spec, (1,) + shape, device=dev)
+                           for i in transport.row_ids], axis=0)
+
+
+def bit_rows(generator, transport, shape=()):
+    """This process's rows [rows, *shape] of private uniform bits (bool),
+    drawn as `uniform_rows` draws field elements."""
+    shape = tuple(shape)
+    if not _is_private(generator, transport):
+        return torch.rand((transport.n_parties,) + shape, generator=generator,
+                          device=generator.device) < 0.5
+    return torch.stack([torch.rand(shape, generator=generator[i], device=generator.device)
+                        < 0.5 for i in transport.row_ids], dim=0)
+
+
+def dealer_draw(generator, spec: FieldSpec, transport, dealer: int, shape):
+    """The uniform draw [*shape] that party ``dealer`` makes from its own
+    generator to deal shares (None in a process that does not play it);
+    a replicated generator draws in every process."""
+    if not _is_private(generator, transport):
+        return uniform_fp(generator, spec, tuple(shape), device=transport.device)
+    if not transport.holds(dealer):
+        return None
+    return uniform_fp(generator[dealer], spec, tuple(shape), device=transport.device)
 
 
 def _commitment(party: int, seed: bytes) -> bytes:

@@ -11,13 +11,14 @@ ops maintain, and every opening queues its residue mac_i - alpha_i * opened
 for a batched check that must be drained and verified.
 
 Every tensor has a leading party axis of ``transport.rows`` rows: all
-parties on the stacked transport, the party's own row on a socket.  Every
-random draw is made at the stacked shape [P, ...] from the generator and
-a party keeps its own rows (`Transport.own_rows`), so a socket party holds
-exactly its row of the stacked run.  The generators stand for a replicated
-key, seeded from the run's public seed (a test-net dealer): a socket party
-can recompute every other party's shares, so inputs are not private from
-peers.
+parties on the stacked transport, the party's own row on a socket.  A
+private draw takes `rand.PartyGenerators`: party i's row comes from party
+i's own generator, and a dealer (the leader in `king_share`) draws its
+masks from its own generator and deals each party its row
+(`Transport.deal`), so under the same private seeds a socket party holds
+exactly its row of the stacked run, and no process can recompute another
+party's draws.  A replicated ``torch.Generator`` (a key every party
+knows) is still taken where one process plays every party.
 """
 
 from __future__ import annotations
@@ -592,9 +593,9 @@ def beaver_div(x: MpcFp, y: MpcFp) -> MpcFp:
 
 def rand_shared(generator, spec: FieldSpec, shape=(), shares=None) -> MpcFp:
     """Fresh random shared value.  Semi-honest: each party holds an
-    independent uniform share, its row of one [P, *shape] draw; ``shares``:
-    optional injected share tensor (FpArray [P, *shape]) in place of the
-    draw.  SPDZ: the value must carry
+    independent uniform share drawn from its own generator
+    (`rand.uniform_rows`); ``shares``: optional injected share tensor
+    (FpArray [P, *shape]) in place of the draw.  SPDZ: the value must carry
     MACs, so it comes from the triple source's <r> pool (a source without
     one raises)."""
     c = ctx()
@@ -604,31 +605,57 @@ def rand_shared(generator, spec: FieldSpec, shape=(), shares=None) -> MpcFp:
             raise ValueError("spdz random shares come from the triple source")
         return c.triple_source.rand_shares(spec, shape)
     if shares is None:
-        shares = R.uniform_fp(generator, spec, stacked_shape(t, shape), device=t.device)
+        return MpcFp(R.uniform_rows(generator, spec, t, shape), SHARED)
     assert shares.shape == stacked_shape(t, shape), shares.shape
     return MpcFp(t.own_rows(shares.to(t.device)), SHARED)
 
 
+def deal_fp(t: T.Transport, rows: FpArray | None, dealer: int, spec: FieldSpec,
+            batch) -> FpArray:
+    """Party ``dealer``'s FpArray rows [P, *batch] (None in a process that
+    does not play it) -> this process's rows, in one round
+    (`Transport.deal`).  On a socket the bound travels as a last word
+    beside the limbs, so each party's row carries the stacked run's."""
+    batch = tuple(batch)
+    if t.holds_all_rows:
+        t.deal(rows.limbs, dealer, batch + (spec.nlimbs,))
+        return rows
+    packed = None
+    if rows is not None:
+        limbs = rows.limbs
+        bound = torch.full(limbs.shape[:-1] + (1,), rows.bound, dtype=limbs.dtype,
+                           device=limbs.device)
+        packed = torch.cat([limbs, bound], dim=-1)
+    got = t.deal(packed, dealer, batch + (spec.nlimbs + 1,))
+    return FpArray(got[..., :-1].contiguous(), spec, int(got.reshape(-1)[-1]))
+
+
 def king_share(value: FpArray, generator, shares=None) -> MpcFp:
     """The leader (party 0) deals additive shares of ``value``: parties
-    1..P-1 hold uniform draws, the leader value minus their sum.  As in the
-    reference, one draw of [P, *shape] is made and row 0 is not used (the
-    draws stand for a replicated key's outputs, so this is a test-net
-    dealer, not private input sharing); under SPDZ every party knows the
-    value, so each forms its MAC share alpha_i * value.  A socket party
-    keeps its row of the dealing.  ``shares``: optional injected draws
-    (FpArray [P, *shape]) in place of the generator's."""
+    1..P-1 hold uniform masks the leader draws from its own generator, the
+    leader value minus their sum, and each party gets its row in one round
+    (`deal_fp`).  A replicated generator (one process playing every party)
+    draws [P, *shape] and leaves row 0 unused, as the reference does.
+    Under SPDZ every party knows the value, so each forms its MAC share
+    alpha_i * value.  ``shares``: optional injected draws (FpArray
+    [P, *shape]) in place of the generator's."""
     c = ctx()
     t = c.transport
     spec = value.spec
     batch = tuple(value.shape)
-    if shares is None:
+    if shares is None and not R._is_private(generator, t):
         shares = R.uniform_fp(generator, spec, stacked_shape(t, batch), device=t.device)
-    assert shares.shape == stacked_shape(t, batch), shares.shape
-    shares = shares.to(t.device)
-    value = value.to(t.device)
-    leader = value - _sum_axis0(shares[1:])
-    sh = t.own_rows(FpArray.concat([leader.reshape((1,) + batch), shares[1:]], axis=0))
+    if shares is not None:
+        assert shares.shape == stacked_shape(t, batch), shares.shape
+        masks = shares.to(t.device)[1:]
+    else:
+        masks = R.dealer_draw(generator, spec, t, 0, (t.n_parties - 1,) + batch)
+    rows = None
+    if t.holds(0):
+        value = value.to(t.device)
+        leader = value - _sum_axis0(masks)
+        rows = FpArray.concat([leader.reshape((1,) + batch), masks], axis=0)
+    sh = deal_fp(t, rows, 0, spec, batch)
     mac = None
     if c.backend == "spdz":
         vparty = FpArray(_rebroadcast(t, value.limbs), spec, value.bound)
@@ -643,3 +670,35 @@ def _sum_axis0(x: FpArray) -> FpArray:
     for i in range(1, x.shape[0]):
         acc = acc + x[i]
     return acc
+
+
+# ---------------------------------------------------------------------------
+# modulus conversion: re-embed a wire mod p1 as a wire mod p2
+# ---------------------------------------------------------------------------
+
+
+def modulus_conversion(x: MpcFp, target: FieldSpec, generator, shares=None) -> MpcFp:
+    """A field wire mod p1 as a wire mod p2 (reference
+    `mpc_primitives.rs:75-87` ``ModulusConversion``), as the reference does
+    it (`share/additive.rs:164-181`, `spdz.rs:253-265`, both marked "bad
+    implementation, just for testing"): the value is opened, its integer
+    bits re-embedded mod p2 (`ops.limbs.fp_from_digits`), and the result
+    dealt by the leader (`king_share`, its masks from ``generator``, or the
+    injected ``shares``).  Only for values that may be made public
+    mid-protocol.
+
+    SPDZ: dealing in another field needs a MAC key in that field; the
+    ambient key serves when ``target`` is its field, and otherwise the
+    shares are dealt semi-style, without MACs, as on the reference's
+    path."""
+    from ..ops.limbs import fp_from_digits
+
+    c = ctx()
+    t = c.transport
+    if x.visibility == PUBLIC:
+        return MpcFp.from_public(fp_from_digits(target, x.value[0].int_limbs()))
+    converted = fp_from_digits(target, x.reveal()[0].int_limbs())
+    if c.backend == "spdz" and c.alpha_share.spec is not target:
+        with mpc_scope(MpcContext(t, "semi", c.triple_source)):
+            return king_share(converted, generator, shares)
+    return king_share(converted, generator, shares)

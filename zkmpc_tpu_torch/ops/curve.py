@@ -1,10 +1,13 @@
-"""Batched short-Weierstrass (a = 0) Jacobian point arithmetic.
+"""Batched elliptic-curve point arithmetic.
 
-Port of the SW half of ``zkmpc_tpu/ops/curve.py``: BLS12-377 G1 (over Fq)
-and G2 (over Fq2), generic over the coordinate field.  ``add_unsafe``
-assumes the two finite inputs are neither equal nor negatives; ladders use
-it below the top bit and ``sw_add_complete`` (kernels K2/K3 on the card)
-everywhere a collision is possible.
+Port of ``zkmpc_tpu/ops/curve.py``.  Short Weierstrass (a = 0) Jacobian
+points: BLS12-377 G1 (over Fq) and G2 (over Fq2), generic over the
+coordinate field.  ``add_unsafe`` assumes the two finite inputs are
+neither equal nor negatives; ladders use it below the top bit and
+``sw_add_complete`` (kernels K2/K3 on the card) everywhere a collision is
+possible.  Twisted Edwards (a = -1) points in extended coordinates over
+BLS12-377 Fr: Ed-on-BLS12-377, the curve of the Pedersen commitments,
+whose unified addition is complete; every product is K1 on the card.
 """
 
 from __future__ import annotations
@@ -12,8 +15,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import params
 from .fp2 import Fp2Array
-from .limbs import FQ, FpArray
+from .limbs import EDFR, FQ, FR, FpArray
 
 
 def _field_select(cond, a, b):
@@ -293,3 +297,161 @@ def _gather_points(table: SWPoint, idx, shape) -> SWPoint:
         ix = idx.reshape((1,) + tuple(shape) + (1,) * len(tail)).expand((1,) + tuple(shape) + tail)
         return torch.gather(src, 0, ix)[0]
     return table.map(lambda leaf: pick(leaf, True), lambda leaf: pick(leaf, False))
+
+
+def sw_tree_reduce(points: SWPoint) -> SWPoint:
+    """Sum a batch of points along axis 0 with complete additions (K2/K3
+    on the card): padded with infinities to a power of two, then halved
+    level by level."""
+    n = points.shape[0]
+    pow2 = 1 << (n - 1).bit_length() if n > 1 else 1
+    if pow2 != n:
+        pad = SWPoint.infinity_like(_bcast_sw(points[0:1], (pow2 - n,) + points.shape[1:]))
+        points = SWPoint.concat([points.tighten(), pad], axis=0)
+    while points.shape[0] > 1:
+        half = points.shape[0] // 2
+        points = sw_add_complete(points[:half], points[half:])
+    return points[0]
+
+
+# ---------------------------------------------------------------------------
+# Twisted Edwards (a = -1): Ed-on-BLS12-377, base field BLS12-377 Fr
+# ---------------------------------------------------------------------------
+
+
+class TEPoint:
+    """Extended twisted Edwards coordinates (X:Y:T:Z), T = XY/Z, over FR."""
+
+    __slots__ = ("x", "y", "t", "z")
+
+    def __init__(self, x, y, t, z):
+        self.x = x
+        self.y = y
+        self.t = t
+        self.z = z
+
+    @property
+    def shape(self):
+        return self.x.shape
+
+    @property
+    def device(self):
+        return self.x.device
+
+    def coords(self):
+        return (self.x, self.y, self.t, self.z)
+
+    def map(self, fn) -> "TEPoint":
+        """Apply ``fn`` (FpArray -> FpArray) to every coordinate."""
+        return TEPoint(*(fn(c) for c in self.coords()))
+
+    def __getitem__(self, idx):
+        return self.map(lambda c: c[idx])
+
+    def reshape(self, *shape):
+        return self.map(lambda c: c.reshape(*shape))
+
+    @classmethod
+    def neutral(cls, shape=(), device="cuda"):
+        zero, one = FpArray.zeros(FR, shape, device), FpArray.ones(FR, shape, device)
+        return cls(zero, one, zero, one)
+
+    @classmethod
+    def from_affine_ints(cls, xy_list, device="cuda"):
+        """[(x, y), ...] -> a batch of points with Z = 1."""
+        xs = np.asarray([t[0] for t in xy_list], dtype=object)
+        ys = np.asarray([t[1] for t in xy_list], dtype=object)
+        ts = np.asarray([t[0] * t[1] % FR.p for t in xy_list], dtype=object)
+        return cls(FpArray.from_int(FR, xs, device=device),
+                   FpArray.from_int(FR, ys, device=device),
+                   FpArray.from_int(FR, ts, device=device),
+                   FpArray.ones(FR, (len(xy_list),), device))
+
+    def to_affine_ints(self):
+        """Host-side: canonical affine coordinates [(x, y), ...]."""
+        zinv = self.z.inv()
+        ax = (self.x * zinv).to_ints()
+        ay = (self.y * zinv).to_ints()
+        return [(int(x), int(y)) for x, y in zip(ax.reshape(-1), ay.reshape(-1))]
+
+    def tighten(self):
+        return self.map(FpArray.tighten)
+
+    @staticmethod
+    def select(cond, a: "TEPoint", b: "TEPoint"):
+        return TEPoint(*(FpArray.select(cond, ca, cb)
+                         for ca, cb in zip(a.coords(), b.coords())))
+
+    @staticmethod
+    def concat(points, axis=0):
+        """Concatenate along batch axis ``axis`` (negative counts from the
+        last batch axis)."""
+        caxis = axis - 1 if axis < 0 else axis
+        return TEPoint(*(FpArray.concat(list(cs), caxis)
+                         for cs in zip(*(p.coords() for p in points))))
+
+
+def _te_two_d(device) -> FpArray:
+    """2d in Montgomery form (bound 1)."""
+    return FpArray.from_int(FR, 2 * params.ED_D, device=device)
+
+
+def te_add(p: TEPoint, q: TEPoint) -> TEPoint:
+    """Unified complete addition, add-2008-hwcd-3 (a = -1)."""
+    a = (p.y - p.x) * (q.y - q.x)
+    b = (p.y + p.x) * (q.y + q.x)
+    c = p.t * q.t * _te_two_d(p.device)
+    d = (p.z * q.z).double()
+    e = b - a
+    f = d - c
+    g = d + c
+    h = b + a
+    return TEPoint((e * f).tighten(), (g * h).tighten(), (e * h).tighten(),
+                   (f * g).tighten())
+
+
+def te_double(p: TEPoint) -> TEPoint:
+    return te_add(p, p)
+
+
+def te_neg(p: TEPoint) -> TEPoint:
+    return TEPoint(-p.x, p.y, -p.t, p.z)
+
+
+def _te_bound2(p: TEPoint) -> TEPoint:
+    return p.map(_coord_bound2)
+
+
+def te_scalar_mul(points: TEPoint, scalars: FpArray, nbits: int | None = None) -> TEPoint:
+    """Batched complete double-and-add, least significant bit first: for
+    each bit, acc + base is taken where the bit is set and base doubles.
+    Both additions of a bit run as one `te_add` over acc||base and
+    base||base (one K1 launch a product for both), each lane as the
+    reference's scanned form computes it.  The points broadcast against
+    the scalars' batch shape."""
+    nbits = nbits or EDFR.p.bit_length()
+    shape = tuple(torch.broadcast_shapes(tuple(points.shape), tuple(scalars.shape)))
+    flat = shape or (1,)
+    bits = scalar_bits(scalars, nbits).expand(shape + (nbits,)).reshape(flat + (nbits,))
+    acc = _te_bound2(TEPoint.neutral(flat, points.device))
+    base = _te_bound2(points.tighten().map(lambda c: c.broadcast_to(shape).reshape(flat)))
+    n = flat[0]
+    for i in range(nbits):
+        both = te_add(TEPoint.concat([acc, base]), TEPoint.concat([base, base]))
+        acc = TEPoint.select(bits[..., i] > 0, both[:n], acc)
+        base = both[n:]
+    return acc if shape else acc[0]
+
+
+def te_tree_reduce(points: TEPoint) -> TEPoint:
+    """Sum a batch of points along axis 0: padded with the neutral point to
+    a power of two, then halved level by level."""
+    n = points.shape[0]
+    pow2 = 1 << (n - 1).bit_length() if n > 1 else 1
+    if pow2 != n:
+        pad = TEPoint.neutral((pow2 - n,) + points.shape[1:], points.device)
+        points = TEPoint.concat([points, pad], axis=0)
+    while points.shape[0] > 1:
+        half = points.shape[0] // 2
+        points = te_add(points[:half], points[half:])
+    return points[0]

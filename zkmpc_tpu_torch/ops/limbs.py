@@ -541,6 +541,32 @@ def fp_from_u32(spec: FieldSpec, vals) -> FpArray:
     return FpArray(out, spec, 2)
 
 
+def fp_from_digits(spec: FieldSpec, digits) -> FpArray:
+    """Canonical base-2^15 digits [..., nd] of an integer (any width nd) ->
+    Montgomery-form FpArray of the integer mod ``spec.p``, on the digits'
+    device: the re-embedding of a bit pattern into another prime field
+    that cross-field modulus conversion needs (reference
+    `share/additive.rs:164-181`).  Either direction (wide to narrow
+    reduces, narrow to wide zero-extends) runs as a chunked Horner: each
+    chunk of nlimbs-1 digits (below B^(n-1), inside REDC's bound) is lifted
+    to Montgomery form by one REDC with R^2, then folded in with the public
+    constant B^(n-1) mod p; every REDC is K1 on a CUDA tensor."""
+    digits = torch.as_tensor(digits).to(_I64)
+    n = spec.nlimbs
+    c = n - 1
+    nd = digits.shape[-1]
+    k = max(1, -(-nd // c))
+    digits = torch.nn.functional.pad(digits, (0, k * c - nd))
+    r2 = spec.const("r2_limbs", digits.device)
+    shift = FpArray.from_int(spec, (B ** c) % spec.p, device=digits.device)
+    acc = None
+    for j in reversed(range(k)):
+        raw = torch.nn.functional.pad(digits[..., j * c:(j + 1) * c], (0, 1))
+        chunk = FpArray(_mont_mul_limbs(spec, raw, r2), spec, 2)
+        acc = chunk if acc is None else acc * shift.broadcast_to(chunk.shape) + chunk
+    return acc
+
+
 def fp_geq_const(x_int_limbs, spec: FieldSpec, k: int):
     """x >= k for canonical integer limbs (from ``int_limbs()``) against a
     host int."""

@@ -1,16 +1,19 @@
 """Multi-scalar multiplication.
 
-Port of the SW half of ``zkmpc_tpu/ops/msm.py``: 16 points and more go to
-the bucketed Pippenger MSM (`msm_pippenger.sw_msm_bucketed`); fewer use a
-batched double-and-add ladder plus a masked log-depth fold.  The 16-point
-cutoff is the reference's; it is still to be re-measured on the H100.
+Port of ``zkmpc_tpu/ops/msm.py``.  Short Weierstrass: 16 points and more
+go to the bucketed Pippenger MSM (`msm_pippenger.sw_msm_bucketed`); fewer
+use a batched double-and-add ladder plus a masked log-depth fold.  The
+16-point cutoff is the reference's; it is still to be re-measured on the
+H100.  Twisted Edwards (`te_msm`): a per-point double-and-add, then a
+log-depth fold of the products.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .curve import SWPoint, _bcast_sw, _point_bound2, sw_add_complete, sw_scalar_mul
+from .curve import (SWPoint, TEPoint, _bcast_sw, _point_bound2, sw_add_complete,
+                    sw_scalar_mul, te_add, te_scalar_mul)
 from .fp2 import Fp2Array
 from .limbs import FpArray
 
@@ -111,3 +114,21 @@ def _coord_slice(f, sl):
     if isinstance(f, FpArray):
         return FpArray(f.limbs[..., sl, :], f.spec, f.bound)
     return Fp2Array(_coord_slice(f.c0, sl), _coord_slice(f.c1, sl))
+
+
+def te_msm(points: TEPoint, scalars: FpArray, nbits: int | None = None) -> TEPoint:
+    """points: [N] (or broadcastable), scalars: [..., N] -> TEPoint [...]:
+    every product by `curve.te_scalar_mul`, then pairwise folds of the
+    last axis (an odd last product carried to the next level)."""
+    shape = scalars.shape
+    prods = te_scalar_mul(points.map(lambda c: c.broadcast_to(shape)), scalars, nbits)
+    while prods.shape[-1] > 1:
+        n = prods.shape[-1]
+        half = n // 2
+        folded = te_add(prods.map(lambda c: _coord_slice(c, slice(0, half))),
+                        prods.map(lambda c: _coord_slice(c, slice(half, 2 * half))))
+        if n % 2:
+            folded = TEPoint.concat([folded, prods.map(
+                lambda c: _coord_slice(c, slice(2 * half, n)))], axis=-1)
+        prods = folded
+    return prods.map(lambda c: _coord_slice(c, 0))

@@ -39,6 +39,8 @@ CXX_FLAGS = ["-O2", "-shared", "-fPIC", "-pthread", "-std=c++17"]
 
 #: seconds `NativeMeshNet.connect` waits for the whole mesh to come up
 CONNECT_TIMEOUT_S = 120.0
+#: the mesh channel of `SocketTransport.deal`'s point-to-point frames
+DEAL_CHAN = 1
 
 _lock = threading.Lock()
 _lib = None
@@ -292,6 +294,35 @@ class SocketTransport(T.Transport):
     def atomic_broadcast(self, x):
         parts = self._exchange(x, self.net.atomic_broadcast_bytes)
         return self._back(np.stack(parts, axis=1), x)
+
+    def deal(self, x, dealer: int, shape):
+        """The dealer's rows go out as uint32 frames: the leader's through
+        the mesh's scatter, another dealer's one frame a peer on
+        `DEAL_CHAN`."""
+        me, n = self.party_id, self.n_parties
+        shape = tuple(shape)
+        if (x is None) == (me == dealer):
+            raise ValueError(f"deal: the dealer (party {dealer}) and only the dealer passes "
+                             f"the rows (this is party {me})")
+        nbytes = 4 * int(np.prod(shape, dtype=np.int64))
+        rows = None
+        if me == dealer:
+            if tuple(x.shape) != (n,) + shape:
+                raise ValueError(f"deal: rows {tuple(x.shape)} where {(n,) + shape} are due")
+            data, _ = _to_wire(x)
+            rows = [data[j * nbytes:(j + 1) * nbytes] for j in range(n)]
+        if dealer == 0:
+            mine = self.net.scatter_from_leader(rows, nbytes, chan=DEAL_CHAN)
+        elif me == dealer:
+            for j in range(n):
+                if j != me:
+                    self.net.send_bytes(j, rows[j], chan=DEAL_CHAN)
+            mine = rows[me]
+        else:
+            mine = self.net.recv_bytes(dealer, max_len=nbytes, chan=DEAL_CHAN)
+        out = torch.from_numpy(_from_wire(mine, (1,) + shape)).to(self.device)
+        self.stats.record(out)
+        return out
 
     def party_index(self, batch_ndim: int):
         return torch.full((1,) + (1,) * batch_ndim, self.party_id, dtype=torch.int64,

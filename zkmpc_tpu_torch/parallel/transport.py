@@ -67,6 +67,12 @@ class Transport:
         """The ids of the rows held, shaped [rows, 1 * batch_ndim]."""
         raise NotImplementedError
 
+    def deal(self, x, dealer: int, shape):
+        """Party ``dealer`` hands each party its row: the process that plays
+        the dealer passes the integer tensor ``x`` [n_parties, *shape], every
+        other process None; each gets its rows [rows, *shape].  One round."""
+        raise NotImplementedError
+
     @property
     def row_ids(self) -> list:
         """The party ids of the rows this process holds, in order."""
@@ -126,6 +132,11 @@ class StackedTransport(Transport):
         return list(range(self.n_parties))
 
     def own_rows(self, x):
+        return x
+
+    def deal(self, x, dealer: int, shape):
+        assert tuple(x.shape) == (self.n_parties,) + tuple(shape), (x.shape, shape)
+        self.stats.record(x)
         return x
 
     def psum(self, x):
