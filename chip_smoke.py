@@ -43,6 +43,12 @@ processes draw their private seeds from their own entropy.  Phase 11
 drives the last single-device modules: multiplicative shares, shared
 bytes, a byte circuit proved with Groth16, modulus conversion, the
 Edwards ops and `te_msm`, and the SW tree reduction, under the timer.
+Phase 12 runs the party-axis mesh: three ranks (OS processes) of a
+torch.distributed group on the one card, over gloo (`parallel.mesh`),
+prove phase 4's circuit with their own private seeds and must give the
+stacked proof under the same seeds; then bit decompositions, comparisons,
+private draws and the JAX package's two mesh protocols, whose opened
+values and rows must equal the stacked run's.
 
     python3 chip_smoke.py              # needs one CUDA card
     python3 chip_smoke.py --gates 64   # a quicker main-path run
@@ -682,7 +688,7 @@ def phase_slice(n_gates, n_parties=3):
         f"wrong instance rejected; peak device memory {peak} B ({peak / 2**30:.2f} GiB)")
     log(f"phase 4 launches: setup {setup_launches}; prove 1 {per_prove[0]}; "
         f"prove 2 {per_prove[1]}; main path {launches}")
-    return launches
+    return launches, dpk
 
 
 def phase_pedersen(n_parties=3):
@@ -1248,7 +1254,7 @@ def _free_ports(n):
 ONLINE_TIMES = ("input_s", "synthesis_s", "setup_s", "prove_s", "verify_s")
 #: the parties' private seeds of phase 8's online runs and phase 10's
 #: Marlin processes (phase 10's Groth16 processes draw their own)
-ONLINE_PRIVATE_SEEDS = [101, 102, 103]
+ONLINE_PRIVATE_SEEDS = [int.from_bytes(bytes([101 + i]) * 32, "little") for i in range(3)]
 #: the zksnarks whose phase 10 processes take phase 8's private seeds
 SEEDED_ZKSNARKS = ("marlin",)
 
@@ -1290,7 +1296,7 @@ def phase_socket(online, workdir, timeout=300):
                     [sys.executable, "-m", "zkmpc_tpu_torch.cli.online", inputs, "--outdir",
                      setup_dir, "--id", str(i), "--addrs", addrs, "--zksnark", zksnark,
                      "--seed", "0", "--device", DEVICE, "--report", reports[i]]
-                    + (["--private-seed", str(ONLINE_PRIVATE_SEEDS[i])] if seeded else []),
+                    + (["--private-seed", hex(ONLINE_PRIVATE_SEEDS[i])] if seeded else []),
                     cwd=ROOT, stdout=log_f, stderr=subprocess.STDOUT))
         try:
             rcs = [p.wait(timeout=max(1.0, t0 + timeout - time.time())) for p in procs]
@@ -1644,7 +1650,7 @@ def phase_modules(n_parties=3, seed=11):
     def scope():
         t = StackedTransport(n_parties, dev)
         return mpc_scope(MpcContext(t, "semi")), R.PartyGenerators.for_transport(
-            t, [rng.getrandbits(63) for _ in range(n_parties)])
+            t, [rng.getrandbits(256) for _ in range(n_parties)])
 
     def ints(fp):
         return [int(v) for v in fp.to_ints().reshape(-1)]
@@ -1816,6 +1822,191 @@ def phase_modules(n_parties=3, seed=11):
     return total
 
 
+#: the values of phase 12 (b): bit decompositions and comparisons
+MESH_BITS = 64
+
+
+def _mesh_protocols(t, seeds, inputs):
+    """Phase 12 (b) and (c) on transport ``t`` (stacked or a mesh rank),
+    under the parties' private ``seeds``, one ChaCha20 stream each
+    protocol: `bit_decomposition` of MESH_BITS shared values, `less_than`
+    of MESH_BITS pairs, a `rand_shared` and a `bit_rand` draw; then the
+    protocols of the JAX package's mesh tests, x*y + x - y and the
+    multiplicative shares 2, 3, 5.  ``inputs``: every party's share limbs
+    [P, ...] by name.  Returns name -> (this process's share limbs or
+    None, the opened ints of its first row)."""
+    import torch
+    from zkmpc_tpu_torch.mpc import bits as B
+    from zkmpc_tpu_torch.mpc import rand as R
+    from zkmpc_tpu_torch.mpc.mul_share import MpcMulFp
+    from zkmpc_tpu_torch.mpc.share import SHARED, MpcContext, MpcFp, mpc_scope, rand_shared
+    from zkmpc_tpu_torch.ops.limbs import FR, FpArray
+    gens = R.PartyGenerators.for_transport(t, {i: seeds[i] for i in t.row_ids})
+
+    def rows(name):
+        return FpArray(t.own_rows(torch.as_tensor(inputs[name])).to(t.device), FR, 2)
+
+    def opened(x):
+        return [int(v) for v in x.reveal().to_ints()[0].reshape(-1)]
+    out = {}
+    with mpc_scope(MpcContext(t, "semi")):
+        shared = {k: MpcFp(rows(k), SHARED) for k in ("bits_x", "lt_x", "lt_y", "x", "y")}
+        for name, x in (
+                ("bit_decomposition", B.bit_decomposition(shared["bits_x"], gens.stream(3))),
+                ("less_than", B.less_than(shared["lt_x"], shared["lt_y"], gens.stream(4))),
+                ("rand_shared", rand_shared(gens.stream(5), FR, (MESH_BITS,))),
+                ("bit_rand", B.bit_rand(gens.stream(6), FR, (MESH_BITS,)))):
+            out[name] = (x.value.limbs, opened(x))
+        x, y = shared["x"], shared["y"]
+        out["x*y+x-y"] = (None, opened(x * y + x - y))
+        out["mul_share"] = (None, opened(MpcMulFp.from_shares(rows("factors"))))
+    return out
+
+
+def _mesh_rank(t, key_path, a_limbs, b_limbs, seeds, inputs):
+    """One rank of phase 12: the wide-mul prove with its own private seed
+    (`parallel.mesh.prove_rank`), then `_mesh_protocols`; returns its
+    report (seconds, openings, bytes, peak device memory, launches, the
+    loaded modules) and results."""
+    import torch
+    from zkmpc_tpu_torch.ops import build as K
+    from zkmpc_tpu_torch.parallel import mesh
+    dev = t.device
+    torch.cuda.reset_peak_memory_stats(dev)
+    K.reset_launches()
+    rep = mesh.prove_rank(t, key_path, a_limbs, b_limbs, seed=seeds[t.party_id])
+    rounds, nbytes = t.stats.rounds, t.stats.bytes_moved
+    t0 = time.time()
+    rep["protocols"] = _mesh_protocols(t, seeds, inputs)
+    torch.cuda.synchronize(dev)
+    rep.update(protocols_s=time.time() - t0, protocol_openings=t.stats.rounds - rounds,
+               protocol_bytes=t.stats.bytes_moved - nbytes,
+               on_device=rep["on_device"] and all(
+                   v.device.type == dev.type for v, _ in rep["protocols"].values()
+                   if v is not None),
+               peak_device_bytes=torch.cuda.max_memory_allocated(dev),
+               launches=dict(K.LAUNCHES), describe=t.describe(),
+               modules=mesh.forbidden_modules())
+    return rep
+
+
+def phase_mesh(dpk, n_gates, n_parties=3, timeout=600, seed=12):
+    """Phase 12: the party-axis mesh on the card, one rank (OS process) a
+    party in a torch.distributed group (`parallel.mesh.run_parties`), all
+    ranks on one device, so the backend is gloo and the collectives go
+    through the host.  (a) The wide-mul prove at ``n_gates`` gates on
+    phase 4's key: the parent writes the key to a file, proves once on the
+    stacked transport with `PartyGenerators` holding the ranks' private
+    seeds (fresh 256-bit seeds), and each rank loads the key, takes its
+    rows of freshly re-shared inputs and proves with its own seed; every
+    rank's proof must equal the stacked one, verify under the host pairing
+    and reject a wrong instance.  (b) `_mesh_protocols`' bit protocols and
+    private draws, and (c) the JAX package's two mesh protocols: every
+    rank's opened values equal the stacked run's and the plain values, and
+    its rows of each share equal the stacked run's row.  Per rank: key
+    load and prove seconds, openings and bytes moved, peak device memory,
+    K1/K2/K3 launches, and no JAX module loaded.  Returns the launches of
+    the stacked runs and the ranks."""
+    import secrets
+    import tempfile
+
+    import numpy as np
+    import torch
+    from zkmpc_tpu_torch.mpc import rand as R
+    from zkmpc_tpu_torch.ops import build as K
+    from zkmpc_tpu_torch.ops.limbs import FR, FpArray
+    from zkmpc_tpu_torch.parallel import mesh
+    from zkmpc_tpu_torch.parallel.transport import StackedTransport
+    from zkmpc_tpu_torch.snark import driver, groth16
+    dev = torch.device(DEVICE)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    rng = np.random.default_rng(seed)
+    prng = random.Random(seed)
+    seeds = [secrets.token_bytes(32) for _ in range(n_parties)]
+    _, (a_l, b_l, _) = driver.make_prove_fn(dpk, n_parties)
+    a_l = _reshare(a_l, _masks(rng, n_parties, (n_gates,), dev))
+    b_l = _reshare(b_l, _masks(rng, n_parties, (n_gates,), dev))
+    vals = {"bits_x": [prng.randrange(FR.p) for _ in range(MESH_BITS)],
+            "lt_x": [prng.getrandbits(200) for _ in range(MESH_BITS)],
+            "lt_y": [prng.getrandbits(200) for _ in range(MESH_BITS)],
+            "x": [6, 9], "y": [7, 11]}
+    inputs = {k: _reshare(driver.deal(v, n_parties, dev), _masks(rng, n_parties, (len(v),), dev))
+              .cpu().numpy() for k, v in vals.items()}
+    inputs["factors"] = FpArray.from_int(FR, np.asarray([[2], [3], [5]], dtype=object),
+                                         device="cpu").limbs.numpy()
+    torch.cuda.synchronize()
+    K.reset_launches()
+    t0 = time.time()
+    step, _ = driver.make_prove_fn(dpk, n_parties)
+    want = driver.proof_arrays_to_ints(step(a_l, b_l, R.PartyGenerators(range(n_parties),
+                                                                        seeds, dev)))
+    torch.cuda.synchronize()
+    t_stacked = time.time() - t0
+    t0 = time.time()
+    stacked = _mesh_protocols(StackedTransport(n_parties, dev), seeds, inputs)
+    torch.cuda.synchronize()
+    t_stacked_protocols = time.time() - t0
+    launches = dict(K.LAUNCHES)
+    inst = driver.expected_instance(n_gates)
+    if not groth16.verify(dpk.pk.vk, inst, want):
+        raise AssertionError("phase 12: the stacked proof does not verify")
+    if groth16.verify(dpk.pk.vk, [inst[0], (inst[1] + 1) % FR.p], want):
+        raise AssertionError("phase 12: a wrong instance verified")
+    plain = {"bit_decomposition": [(v >> j) & 1 for v in vals["bits_x"]
+                                   for j in range(FR.p.bit_length())],
+             "less_than": [int(x < y) for x, y in zip(vals["lt_x"], vals["lt_y"])],
+             "x*y+x-y": [(6 * 7 + 6 - 7) % FR.p, (9 * 11 + 9 - 11) % FR.p],
+             "mul_share": [30]}
+    for name, v in plain.items():
+        if stacked[name][1] != v:
+            raise AssertionError(f"phase 12: the stacked {name} opens wrong values")
+    with tempfile.TemporaryDirectory(prefix="zkmpc_phase12_") as d:
+        key_path = os.path.join(d, "dpk.pkl")
+        t0 = time.time()
+        mesh.write_key(dpk, key_path)
+        t_key = time.time() - t0
+        t0 = time.time()
+        ranks = mesh.run_parties(_mesh_rank, n_parties, dev, "gloo", timeout,
+                                 args=(key_path, a_l.cpu().numpy(), b_l.cpu().numpy(), seeds,
+                                       inputs))
+        wall = time.time() - t0
+    log(f"phase 12 mesh: backend gloo, {n_parties} ranks on one device {dev} "
+        f"({ranks[0]['describe']}); stacked prove {t_stacked:.2f} s, stacked protocols "
+        f"{t_stacked_protocols:.2f} s, key written in {t_key:.2f} s; ranks "
+        f"{wall:.2f} s wall-clock")
+    for i, r in enumerate(ranks):
+        who = f"phase 12 rank {i}"
+        if r["modules"]:
+            raise AssertionError(f"{who} imported {r['modules'][:5]}")
+        if not r["on_device"]:
+            raise AssertionError(f"{who}: a result left the card")
+        if r["proof"] != want:
+            raise AssertionError(f"{who}: the mesh proof differs from the stacked proof")
+        for name, (limbs, opened) in stacked.items():
+            mine, mine_opened = r["protocols"][name]
+            if mine_opened != opened:
+                raise AssertionError(f"{who}: {name} opens other values than the stacked run")
+            if limbs is not None and not torch.equal(mine[0], limbs[i].cpu()):
+                raise AssertionError(f"{who}: its rows of {name} differ from the stacked row")
+        if min(r["launches"].get(k, 0) for k in KERNELS) <= 0:
+            raise AssertionError(f"{who} never launched one of {list(KERNELS)}: "
+                                 f"{r['launches']}")
+        log(f"{who}: key load {r['load_s']:.3f} s, prove {r['prove_s']:.3f} s "
+            f"({r['openings']} openings, {r['bytes']} B), protocols {r['protocols_s']:.3f} s "
+            f"({r['protocol_openings']} openings, {r['protocol_bytes']} B); peak device memory "
+            f"{r['peak_device_bytes']} B ({r['peak_device_bytes'] / 2**30:.2f} GiB); "
+            f"{_kernel_counts(r['launches'])}, K1 {r['launches'].get('mont_mul', 0)}")
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    log(f"phase 12: every rank's proof equals the stacked proof, which verifies and rejects a "
+        f"wrong instance; bit_decomposition of {MESH_BITS}, less_than of {MESH_BITS}, "
+        f"x*y+x-y = {stacked['x*y+x-y'][1]} and the product 30 open as stacked, every rank's "
+        f"rows equal the stacked rows; no rank imported JAX; stacked launches "
+        f"{_kernel_counts(dict(K.LAUNCHES))}; in all {_kernel_counts(launches)}")
+    return launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--gates", type=int, default=16381,
@@ -1841,7 +2032,7 @@ def main(argv=None):
     timed("2", phase_mont_mul, results)
     timed("3", phase_point_add, results)
     timed("4a", phase_fixture)
-    wide = timed("4", phase_slice, args.gates)
+    wide, wide_dpk = timed("4", phase_slice, args.gates)
     ped = timed("5", phase_pedersen)
     main_bin, semi = timed("6", phase_main)
     spdz = timed("7", phase_spdz, semi)
@@ -1850,7 +2041,8 @@ def main(argv=None):
         werewolf = timed("9", phase_werewolf)
         socket = timed("10", phase_socket, online, work)
     modules = timed("11", phase_modules)
-    paths = (wide, ped, main_bin, spdz, marlin, werewolf, socket, modules)
+    mesh = timed("12", phase_mesh, wide_dpk, args.gates)
+    paths = (wide, ped, main_bin, spdz, marlin, werewolf, socket, modules, mesh)
     log("seconds by phase: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
     launches = {k: sum(p.get(k, 0) for p in paths) for k in set().union(*paths)}
     bad = sorted(m for m in sys.modules if m in ("jax", "zkmpc_tpu")

@@ -5,8 +5,9 @@ the Boolean ops, the batched forms, and the CRH and variable-base
 scalar-product gadgets of `circuits/pedersen_gadget.py`, in one circuit
 written once for both packages
 (`fixtures/make_torch_pedersen_fixture.gadget_circuit`), synthesized once
-for the module, its bit protocols at `torch_parity.ATTEMPTS` candidates
-(what the circuit holds does not depend on them).  Its matrices, instance
+for the module, its bit protocols at one candidate
+(`torch_parity.fewer_attempts(1)`: what the circuit holds does not depend
+on them).  Its matrices, instance
 and opened assignment must equal those the JAX package wrote to the
 fixture; `test_torch_pedersen.py` regenerates it live (`slow`).
 """
@@ -33,7 +34,7 @@ def port_gadget_cs(outputs=None):
     """The gadget circuit through the port; ``outputs``: a dict that
     receives `gadget_circuit`'s wires by gadget name."""
     gen = torch.Generator().manual_seed(1)
-    with fewer_attempts(), _scope():
+    with fewer_attempts(1), _scope():
         cs = ConstraintSystem(FR)
 
         def shared(v):

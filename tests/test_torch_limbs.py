@@ -195,7 +195,7 @@ def test_port_never_imports_jax():
     files, the ark blob, the committed-input circuit, the `main` binary,
     KZG and Marlin, the inputs, ElGamal, MyCircuit, the online binary, the
     socket transport, the multiplicative shares, the shared bytes and their
-    gadget, and the timer."""
+    gadget, the timer, and the mesh transport's rank runner."""
     code = (
         "import pkgutil, sys, importlib\n"
         "import zkmpc_tpu_torch as P\n"
@@ -209,7 +209,7 @@ def test_port_never_imports_jax():
         "       'circuits.input_circuit', 'cli.main', 'compat.ark', 'snark.kzg',\n"
         "       'snark.marlin', 'inputs', 'crypto.elgamal', 'circuits.my_circuit',\n"
         "       'cli.online', 'parallel.native_net', 'mpc.mul_share', 'mpc.uint8',\n"
-        "       'snark.uint8_gadget', 'utils.timer'}\n"
+        "       'snark.uint8_gadget', 'utils.timer', 'parallel.mesh'}\n"
         "assert {'zkmpc_tpu_torch.' + m for m in new} <= set(mods), mods\n"
         "assert not bad, bad\n"
         "print('ok', len(mods))\n")

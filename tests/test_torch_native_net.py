@@ -7,8 +7,9 @@ closes its net, so the peers waiting on it fail at once, and every thread
 is joined with a timeout.
 
 - (a) The mesh ops, the port's parties alone: broadcast, channels,
-  gather/scatter, the commit-then-open broadcast and a party caught
-  equivocating in it, the counters, the uint32 wire and a dead peer.
+  gather/scatter, the commit-echo-open broadcast and a party caught
+  equivocating in it (in its openings or in its commitments), the
+  counters, the uint32 wire and a dead peer.
 - (b) A mixed mesh: party 0 is the JAX package's `NativeMeshNet` /
   `SocketTransport`, parties 1-2 the port's; a byte broadcast, a reveal and
   a Beaver multiply on dummy triples give every party the same values.
@@ -123,14 +124,24 @@ def _socket_scope(net):
 # --------------------------------------------------------------- (a) mesh ops
 
 
-def _equivocate(i, net):
-    """Party 1 commits to one message and opens another."""
-    msg = bytes([i]) * 8
-    if i != 1:
-        return net.atomic_broadcast_bytes(msg)
-    salt = bytes(16)
-    net.broadcast_bytes(hashlib.blake2b(salt + msg, digest_size=32).digest())
-    net.broadcast_bytes(salt + b"x" * 8)
+def _equivocate(how):
+    """Party 1 equivocates in the atomic broadcast: ``"open"`` commits to
+    one message and opens another, ``"commit"`` sends party 0 and party 2
+    different commitments, each with its matching opening."""
+    def party(i, net):
+        msg = bytes([i]) * 8
+        if i != 1:
+            return net.atomic_broadcast_bytes(msg)
+        salt, other = bytes(16), b"x" * 8
+
+        def com(m):
+            return hashlib.blake2b(salt + m, digest_size=32).digest()
+        if how == "open":
+            coms, opens = [com(msg)] * N, [salt + other, salt + msg, salt + other]
+        else:
+            coms, opens = [com(msg), com(msg), com(other)], [salt + msg, salt + msg, salt + other]
+        T.commit_echo_open(net.swap_bytes, i, coms, opens)
+    return party
 
 
 def _wire(i, net):
@@ -163,7 +174,8 @@ MESH_CASES = {
                                 4)),
     "atomic": lambda i, net: net.atomic_broadcast_bytes(bytes([i]) * 16),
     "counters": lambda i, net: (net.broadcast_bytes(b"abcd"), net.stats)[1],
-    "equivocation": _equivocate,
+    "equivocation": _equivocate("open"),
+    "equivocation_commit": _equivocate("commit"),
     "wire": _wire,
     "dead_peer": _dead_peer,
 }
@@ -172,8 +184,9 @@ MESH_CASES = {
 @pytest.mark.parametrize("case", list(MESH_CASES))
 def test_mesh_ops(case):
     results, errors = run_parties(MESH_CASES[case])
-    if case == "equivocation":
-        assert all(isinstance(e, AssertionError) and "party 1 equivocated" in str(e)
+    if case.startswith("equivocation"):
+        want = "party 1 equivocated" if case == "equivocation" else "a party equivocated"
+        assert all(isinstance(e, AssertionError) and want in str(e)
                    for e in (errors[0], errors[2])), errors
         return
     if case == "dead_peer":

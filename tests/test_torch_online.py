@@ -204,7 +204,7 @@ def test_elgamal_and_my_circuit_match_reference():
     # MyCircuit at 4 bits against the JAX package's
     fx = OF.load(np.load(OF.PATH))
     pp = pedersen.PedersenParams.sample(OF.PP_SEED)
-    with fewer_attempts(), _scope():
+    with fewer_attempts(1), _scope():
         iwcs = [IN.InputWithCommit(i, king_share(_fr(x), gen),
                                    MpcFp.const(FR, [(r >> j) & 1 for j in range(OF.NBITS)]),
                                    pedersen.commit_public_ints(pp, x, r))

@@ -76,7 +76,9 @@ def test_mpc_commitment_and_te_points_match_spec():
 
 
 def _port_pedersen_cs():
-    with fewer_attempts():
+    # one candidate a random bitwise-shared value: the circuit does not
+    # depend on the draws
+    with fewer_attempts(1):
         return driver.synthesize_pedersen_cs(PF.N_PARTIES, nbits=PF.NBITS, device=CPU)
 
 
@@ -104,17 +106,23 @@ def test_circuits_against_live_reference():
     check_circuit(port_gadget_cs(), fx["gadgets"])
 
 
+#: parties of the prove test: the prove runs the same code at any party
+#: count, and its ladders' work grows with the rows
+PROVE_PARTIES = 2
+
+
 def test_pedersen_prove_verifies(monkeypatch, pedersen_cs):
-    """Setup and a prove of the 4+4-bit circuit with injected r/s: the proof
-    verifies and a wrong instance is rejected.  The ~40-point MSMs take the
-    ladder path here (the card runs the bucketed path in `chip_smoke.py`);
-    an MSM's value does not depend on the path."""
+    """Setup and a prove of the 4+4-bit circuit with injected r/s, at
+    `PROVE_PARTIES` parties: the proof verifies and a wrong instance is
+    rejected.  The ~40-point MSMs take the ladder path here (the card runs
+    the bucketed path at 3 parties in `chip_smoke.py`); an MSM's value does
+    not depend on the path."""
     monkeypatch.setattr(OM, "MIN_BUCKETED_POINTS", 1 << 30)
     dpk = groth16.device_setup(pedersen_cs, seed=1, device=CPU)
-    step, args = driver.make_pedersen_prove_fn(dpk, PF.N_PARTIES, nbits=PF.NBITS)
-    r, s = (_fr(v) for v in ([5, 7, 9], [2, 3, 4]))
-    t = StackedTransport(PF.N_PARTIES, CPU)
-    with fewer_attempts():
+    step, args = driver.make_pedersen_prove_fn(dpk, PROVE_PARTIES, nbits=PF.NBITS)
+    r, s = (_fr(v) for v in ([5, 7], [2, 3]))
+    t = StackedTransport(PROVE_PARTIES, CPU)
+    with fewer_attempts(1):
         proof = driver.proof_arrays_to_ints(step(*args, r=r, s=s, transport=t))
     assert t.stats.rounds > 0                  # the prove ran on the given transport
     inst = driver.expected_pedersen_instance(PF.NBITS)

@@ -20,16 +20,19 @@ processes give the stacked run's proof.
 
 Every private draw of a party (its shares of random values, its random
 bits in the bit protocols, the masks it deals, its shares of Groth16's r
-and s and of Marlin's masks) comes from that party's own generators
-(`mpc.rand.PartyGenerators`), seeded from its private seed: by default
-the process's own entropy, or ``--private-seed`` (stacked: one a party,
-comma-separated; socket: the process's own).  A socket process holds
-only its own seed, so it cannot recompute another party's shares.  Under
-the same private seeds party i's socket tensors are row i of the stacked
-run's, and so the proofs are equal.  The public ``--seed`` makes what is
-common: the Pedersen parameters, the SRS or trapdoor (``seed + 1``) and
-the commitments' randomness ``ra`` and ``rb``, which the circuit takes
-as public constants, as in the JAX package (ROADMAP Queue 3).
+and s and of Marlin's masks) comes from that party's own ChaCha20
+keystream (`mpc.rand.PartyGenerators`), keyed by its 256-bit private
+seed: by default 32 bytes of the process's own entropy, or
+``--private-seed`` (stacked: one a party, comma-separated; socket: the
+process's own), each an int below 2^256 in decimal or as ``0x`` and up
+to 64 hex digits, the same seed as that int given to `run`.  A socket
+process holds only its own seed, so it cannot recompute another party's
+shares.  Under the same private seeds party i's socket tensors are row
+i of the stacked run's, and so the proofs are equal.  The public
+``--seed`` makes what is common: the Pedersen parameters, the SRS or
+trapdoor (``seed + 1``) and the commitments' randomness ``ra`` and
+``rb``, which the circuit takes as public constants, as in the JAX
+package (ROADMAP Queue 3).
 
 Usage: python -m zkmpc_tpu_torch.cli.online inputs.json [--outdir outputs]
        [--parties 3] [--id I --addrs FILE] [--zksnark marlin|groth16]
@@ -72,7 +75,8 @@ COM_BITS = 16
 #: the public generator stream of a run, seeded from (seed, 0): the
 #: commitments' randomness
 _PUBLIC_STREAM = 0
-#: the private streams of a run, each party's seed hashed with the stream
+#: the ChaCha20 stream ids of a run's private draws (each party's keystream
+#: under its own seed)
 _SYNTHESIS_STREAM, _PROVE_STREAM = 1, 2
 
 #: wire size of a field element (384-bit little-endian, CanonicalSerialize-style)
@@ -206,8 +210,9 @@ def run(inputs_path: str, outdir: str = "outputs", n_parties: int | None = None,
     and verify seconds (to a device synchronize), the openings, the proof
     as canonical ints and, on the mesh, its byte and broadcast counters.
     ``private_seeds``: the private seeds of the parties this process plays
-    (stacked: one a party; socket: its own, an int or a one-item list); by
-    default each party's comes from the process's own entropy."""
+    (stacked: one a party; socket: its own, a seed or a one-item list),
+    each 32 bytes or an int below 2^256; by default each party's comes from
+    the process's own entropy."""
     if zksnark not in ("marlin", "groth16"):
         raise SystemExit(f"unknown zksnark {zksnark!r}")
     if party_id is not None and addrs is None:
@@ -226,7 +231,7 @@ def run(inputs_path: str, outdir: str = "outputs", n_parties: int | None = None,
     dev = torch.device(device)
     rep = report if report is not None else {}
     public_gen = torch.Generator(dev).manual_seed((seed << 8) | _PUBLIC_STREAM)
-    if isinstance(private_seeds, int):
+    if isinstance(private_seeds, (int, bytes)):
         private_seeds = [private_seeds]
     with open(inputs_path) as f:
         doc = json.load(f)
@@ -243,7 +248,7 @@ def run(inputs_path: str, outdir: str = "outputs", n_parties: int | None = None,
         a_int = a_int if party_id == 0 else None
         b_int = b_int if party_id == 1 else None
         own = read_setup(outdir, party_id)
-    # each party's private generators, from its own seed (checked before
+    # each party's private streams, keyed by its own seed (checked before
     # the mesh comes up)
     priv = R.PartyGenerators(range(n_parties) if party_id is None else [party_id],
                              private_seeds, dev)
@@ -331,6 +336,18 @@ def run(inputs_path: str, outdir: str = "outputs", n_parties: int | None = None,
     return ok and neg
 
 
+def parse_private_seed(text: str) -> int:
+    """One ``--private-seed`` item: an int below 2^256, in decimal digits
+    or as ``0x`` and hex digits; `mpc.rand.seed_bytes` makes it the 32
+    little-endian key bytes, as for an int given to `run`."""
+    text = text.strip()
+    try:
+        return int(text, 16) if text[:2].lower() == "0x" else int(text, 10)
+    except ValueError:
+        raise ValueError(f"--private-seed {text!r}: a decimal int, or 0x and hex digits, "
+                         f"below 2^256") from None
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("inputs")
@@ -346,7 +363,9 @@ def main(argv=None):
                          "commitments' randomness")
     ap.add_argument("--private-seed", default=None,
                     help="the private seeds of the parties played, comma-separated (stacked: "
-                         "one a party; socket: this party's own); default: own entropy")
+                         "one a party; socket: this party's own), each an int below 2^256 in "
+                         "decimal or as 0x and hex digits; default: 32 bytes of own "
+                         "entropy")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu for a run without a card)")
     ap.add_argument("--report", default=None,
@@ -357,7 +376,7 @@ def main(argv=None):
     ok = run(args.inputs, args.outdir, args.parties, args.id, args.addrs, args.zksnark,
              args.seed, args.device, report=report,
              private_seeds=None if args.private_seed is None
-             else [int(v) for v in args.private_seed.split(",")])
+             else [parse_private_seed(v) for v in args.private_seed.split(",")])
     if args.report:
         report.update(launches=dict(K.LAUNCHES),
                       modules=sorted({m.split(".")[0] for m in sys.modules}))

@@ -15,9 +15,15 @@ The RNG buffers 4 blocks (64 u32 words) at a time and serves `next_u32` /
 `next_u64` with rand_core `BlockRng` semantics -- the word-consumption
 rules (a u64 straddling a buffer edge) are reproduced exactly so the
 stream stays compatible.
+
+`keystream_words` makes the same words in bulk with numpy, vectorised over
+blocks: the parties' private streams (`mpc.rand.PartyGenerators`) draw
+from it.
 """
 
 from __future__ import annotations
+
+import numpy as np
 
 _MASK32 = 0xFFFFFFFF
 _CONSTANTS = (0x61707865, 0x3320646E, 0x79622D32, 0x6B206574)
@@ -105,3 +111,62 @@ class ChaChaRng:
         lo = self.buf[self.BUF_WORDS - 1]
         self._generate_and_set(1)
         return (self.buf[0] << 32) | lo
+
+
+def _quarter_np(x, a, b, c, d):
+    """`_quarter` on rows of a [16, n] uint32 array, in place."""
+    x[a] += x[b]
+    x[d] ^= x[a]
+    x[d] = (x[d] << 16) | (x[d] >> 16)
+    x[c] += x[d]
+    x[b] ^= x[c]
+    x[b] = (x[b] << 12) | (x[b] >> 20)
+    x[a] += x[b]
+    x[d] ^= x[a]
+    x[d] = (x[d] << 8) | (x[d] >> 24)
+    x[c] += x[d]
+    x[b] ^= x[c]
+    x[b] = (x[b] << 7) | (x[b] >> 25)
+
+
+def chacha_blocks(seed: bytes, stream: int, first_block: int, n_blocks: int,
+                  rounds: int = 20) -> np.ndarray:
+    """Blocks ``first_block`` .. ``first_block + n_blocks - 1`` of the
+    keystream keyed by the 32-byte ``seed`` with stream id ``stream``, in
+    `ChaChaRng`'s state layout: [n_blocks, 16] uint32 words.  Every step
+    is one numpy operation over all the blocks."""
+    assert len(seed) == 32 and rounds in (8, 12, 20)
+    key = np.frombuffer(seed, dtype="<u4").astype(np.uint32)
+    counters = np.arange(first_block, first_block + n_blocks, dtype=np.uint64)
+    init = np.empty((16, n_blocks), dtype=np.uint32)
+    init[0:4] = np.asarray(_CONSTANTS, dtype=np.uint32)[:, None]
+    init[4:12] = key[:, None]
+    init[12] = (counters & np.uint64(_MASK32)).astype(np.uint32)
+    init[13] = (counters >> np.uint64(32)).astype(np.uint32)
+    init[14] = stream & _MASK32
+    init[15] = (stream >> 32) & _MASK32
+    x = init.copy()
+    for _ in range(rounds // 2):
+        _quarter_np(x, 0, 4, 8, 12)
+        _quarter_np(x, 1, 5, 9, 13)
+        _quarter_np(x, 2, 6, 10, 14)
+        _quarter_np(x, 3, 7, 11, 15)
+        _quarter_np(x, 0, 5, 10, 15)
+        _quarter_np(x, 1, 6, 11, 12)
+        _quarter_np(x, 2, 7, 8, 13)
+        _quarter_np(x, 3, 4, 9, 14)
+    x += init
+    return x.T
+
+
+def keystream_words(seed: bytes, stream: int, start: int, n: int,
+                    rounds: int = 20) -> np.ndarray:
+    """Words ``start`` .. ``start + n - 1`` (uint32) of the keystream that
+    `ChaChaRng` with this seed, ``rounds`` and stream id serves through
+    `next_u32`: the blocks in counter order, 16 words a block."""
+    if n <= 0:
+        return np.zeros(0, dtype=np.uint32)
+    first, last = start // 16, (start + n - 1) // 16
+    words = chacha_blocks(seed, stream, first, last - first + 1, rounds).reshape(-1)
+    off = start - 16 * first
+    return words[off:off + n]

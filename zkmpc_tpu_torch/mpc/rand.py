@@ -1,29 +1,37 @@
-"""Randomness helpers: batched uniform field elements from a torch.Generator.
+"""Randomness helpers: batched uniform field elements from a party's
+private ChaCha20 stream or a replicated torch.Generator.
 
-Port of ``zkmpc_tpu/mpc/rand.py``.  The bits come from an explicit
-``torch.Generator`` (JAX's threefry bits cannot be reproduced in torch), or
-are injected: ``uniform_fp(..., bits=(hi, lo))`` takes the two raw 32-bit
-draws ``[..., nlimbs]`` the reference's ``_raw_half_range`` would draw, so
-a test gets the reference's field elements bit for bit.  `coin_toss` is
-the parties' commit-then-open toss for public randomness no party can
-predict (the MAC checks' weights).
+Port of ``zkmpc_tpu/mpc/rand.py``.  JAX's threefry bits cannot be
+reproduced in torch, so a test that needs the reference's field elements
+injects them: ``uniform_fp(..., bits=(hi, lo))`` takes the two raw 32-bit
+draws ``[..., nlimbs]`` the reference's ``_raw_half_range`` would draw.
+`coin_toss` is the parties' commit-then-open toss for public randomness no
+party can predict (the MAC checks' weights).
 
 Private draws (a party's share of a random value, its random bits, the
-masks it deals) take `PartyGenerators`: one generator for each party the
-process plays, seeded from that party's own private seed, so party i's
-rows are the same whether one process plays every party or party i runs
-alone on a socket.  A single replicated ``torch.Generator`` stands for a
-key every party knows; only a transport that holds every row (one
-process playing all parties) accepts it for a private draw.
+masks it deals) take `PartyGenerators`: for each party the process plays,
+the ChaCha20 keystream keyed by that party's own 256-bit seed (32 bytes
+of `secrets` by default), as the reference's parties draw from
+``StdRng::from_entropy``.  Each draw takes the next words of the stream
+(`compat.chacha.keystream_words`, vectorised with numpy on the host, then
+copied to the party's device): a raw limb is a word masked to 15 bits, a
+bit is a keystream bit.  So party i's rows are the same whether one
+process plays every party or party i runs alone on a socket or a mesh
+rank.  A single replicated ``torch.Generator`` stands for a key every
+party knows; only a transport that holds every row (one process playing
+all parties) accepts it for a private draw.
 """
 
 from __future__ import annotations
 
 import hashlib
+import operator
 import secrets
 
+import numpy as np
 import torch
 
+from ..compat.chacha import keystream_words
 from ..ops.limbs import MASK, W, FieldSpec, FpArray
 
 _I64 = torch.int64
@@ -37,11 +45,44 @@ def _raw_half_range(raw, spec: FieldSpec) -> FpArray:
     return FpArray(limbs, spec, spec.mul_bound_budget).tighten()
 
 
-def draw_bits(generator: torch.Generator, spec: FieldSpec, shape):
-    """Raw 15-bit limb draws [*shape, nlimbs] from ``generator``, made on
-    the generator's device."""
-    return torch.randint(0, 1 << W, tuple(shape) + (spec.nlimbs,),
-                         generator=generator, dtype=_I64, device=generator.device)
+class ChaChaStream:
+    """One party's private stream: the ChaCha20 keystream keyed by its
+    32-byte seed, with stream id ``stream`` (state words 14-15), read from
+    word 0 on; ``device``: where its draws go."""
+
+    def __init__(self, seed: bytes, stream: int = 0, device="cuda"):
+        self.seed = seed
+        self.stream = stream
+        self.device = torch.device(device)
+        self.position = 0
+
+    def words(self, n: int) -> np.ndarray:
+        """The next ``n`` keystream words (uint32, on the host)."""
+        out = keystream_words(self.seed, self.stream, self.position, n)
+        self.position += n
+        return out
+
+    def bits(self, shape) -> torch.Tensor:
+        """The next keystream bits as a bool tensor [*shape] on the
+        stream's device: bit b of word w is bit 32 w + b."""
+        shape = tuple(shape)
+        n = int(np.prod(shape, dtype=np.int64))
+        words = self.words(-(-n // 32)).astype("<u4")
+        flat = np.unpackbits(words.view(np.uint8), bitorder="little")[:n]
+        return torch.from_numpy(flat.astype(bool).reshape(shape)).to(self.device)
+
+
+def draw_bits(generator, spec: FieldSpec, shape):
+    """Raw 15-bit limb draws [*shape, nlimbs], made on the generator's
+    device: from a party's `ChaChaStream`, one keystream word a limb masked
+    to 15 bits; from a replicated torch.Generator, its own draws."""
+    shape = tuple(shape) + (spec.nlimbs,)
+    if isinstance(generator, ChaChaStream):
+        n = int(np.prod(shape, dtype=np.int64))
+        words = generator.words(n).astype(np.int64) & MASK
+        return torch.from_numpy(words.reshape(shape)).to(generator.device)
+    return torch.randint(0, 1 << W, shape, generator=generator, dtype=_I64,
+                         device=generator.device)
 
 
 def uniform_fp(generator, spec: FieldSpec, shape=(), device="cuda",
@@ -62,17 +103,32 @@ def uniform_fp(generator, spec: FieldSpec, shape=(), device="cuda",
     return hi * kconst.broadcast_to(hi.shape) + lo
 
 
-class PartyGenerators:
-    """The private generators of the parties this process plays: party i's
-    is seeded from party i's own seed and makes every private draw of
-    party i's row.  ``seeds``: {party: int}, or a sequence in the order of
-    ``party_ids``; by default each seed is 63 bits of the process's own
-    entropy (`secrets`), which no other process can know."""
+def seed_bytes(seed) -> bytes:
+    """A private seed as its 32 bytes: ``bytes`` of length 32, or an int
+    below 2^256 (32 little-endian bytes)."""
+    if isinstance(seed, (bytes, bytearray)):
+        if len(seed) != 32:
+            raise ValueError(f"a private seed is 32 bytes, not {len(seed)}")
+        return bytes(seed)
+    v = operator.index(seed)
+    if not 0 <= v < 1 << 256:
+        raise ValueError(f"a private seed is an int in [0, 2^256), not {v}")
+    return v.to_bytes(32, "little")
 
-    def __init__(self, party_ids, seeds=None, device="cuda"):
+
+class PartyGenerators:
+    """The private streams of the parties this process plays: party i's is
+    the ChaCha20 keystream keyed by party i's own 256-bit seed and makes
+    every private draw of party i's row.  ``seeds``: {party: seed}, or a
+    sequence in the order of ``party_ids``, each 32 bytes or an int below
+    2^256 (`seed_bytes`); by default each seed is 32 bytes of the
+    process's own entropy (`secrets.token_bytes`), which no other process
+    can know.  ``stream``: the stream id of every party's keystream."""
+
+    def __init__(self, party_ids, seeds=None, device="cuda", stream: int = 0):
         ids = list(party_ids)
         if seeds is None:
-            seeds = {i: secrets.randbits(63) for i in ids}
+            seeds = {i: secrets.token_bytes(32) for i in ids}
         elif not isinstance(seeds, dict):
             seeds = list(seeds)
             if len(seeds) != len(ids):
@@ -83,31 +139,28 @@ class PartyGenerators:
         if missing:
             raise ValueError(f"no private seed for parties {missing}")
         self.device = torch.device(device)
-        self.seeds = {i: int(seeds[i]) for i in ids}
-        self._gens = {i: torch.Generator(self.device).manual_seed(s & ((1 << 63) - 1))
-                      for i, s in self.seeds.items()}
+        self.seeds = {i: seed_bytes(seeds[i]) for i in ids}
+        self._streams = {i: ChaChaStream(s, stream, self.device) for i, s in self.seeds.items()}
 
     @classmethod
     def for_transport(cls, transport, seeds=None) -> "PartyGenerators":
-        """The generators of ``transport``'s rows, on its device."""
+        """The streams of ``transport``'s rows, on its device."""
         return cls(transport.row_ids, seeds, transport.device)
 
     @property
     def party_ids(self) -> list:
-        return list(self._gens)
+        return list(self._streams)
 
-    def __getitem__(self, party: int) -> torch.Generator:
-        if party not in self._gens:
-            raise ValueError(f"party {party}'s private generator is not held here "
+    def __getitem__(self, party: int) -> ChaChaStream:
+        if party not in self._streams:
+            raise ValueError(f"party {party}'s private stream is not held here "
                              f"(this process plays {self.party_ids})")
-        return self._gens[party]
+        return self._streams[party]
 
     def stream(self, k: int) -> "PartyGenerators":
-        """Independent generators for stream ``k`` of a run: each party's
-        seed hashed with k."""
-        return PartyGenerators(self.party_ids, {
-            i: int.from_bytes(hashlib.sha256(f"{s}:{k}".encode()).digest()[:8], "little") >> 1
-            for i, s in self.seeds.items()}, self.device)
+        """Stream ``k`` of a run: every party's keystream under the same
+        seed with stream id ``k``, read from its start."""
+        return PartyGenerators(self.party_ids, self.seeds, self.device, stream=k)
 
 
 def _is_private(generator, transport) -> bool:
@@ -147,8 +200,7 @@ def bit_rows(generator, transport, shape=()):
     if not _is_private(generator, transport):
         return torch.rand((transport.n_parties,) + shape, generator=generator,
                           device=generator.device) < 0.5
-    return torch.stack([torch.rand(shape, generator=generator[i], device=generator.device)
-                        < 0.5 for i in transport.row_ids], dim=0)
+    return torch.stack([generator[i].bits(shape) for i in transport.row_ids], dim=0)
 
 
 def dealer_draw(generator, spec: FieldSpec, transport, dealer: int, shape):

@@ -11,7 +11,8 @@ ops maintain, and every opening queues its residue mac_i - alpha_i * opened
 for a batched check that must be drained and verified.
 
 Every tensor has a leading party axis of ``transport.rows`` rows: all
-parties on the stacked transport, the party's own row on a socket.  A
+parties on the stacked transport, the party's own row on a socket or a
+mesh rank.  A
 private draw takes `rand.PartyGenerators`: party i's row comes from party
 i's own generator, and a dealer (the leader in `king_share`) draws its
 masks from its own generator and deals each party its row
@@ -60,9 +61,9 @@ class MpcContext:
         if backend == "spdz" and alpha_share is None:
             raise ValueError("the spdz backend needs the MAC key shares")
         if backend == "spdz" and not transport.holds_all_rows:
-            raise NotImplementedError("the spdz backend over a socket transport is not ported "
-                                      "(no JAX entry point runs it): ROADMAP.md, Queue 1 "
-                                      "step 12.3")
+            raise NotImplementedError(f"the spdz backend on a {transport.kind} transport, one "
+                                      f"party a process, is not ported (the JAX package runs "
+                                      f"it on no such transport): ROADMAP.md, Queue 1")
         self.transport = transport
         self.backend = backend
         self.triple_source = triple_source or DummyTripleSource()

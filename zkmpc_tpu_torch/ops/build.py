@@ -10,6 +10,10 @@ raises.
 
 ``LAUNCHES`` counts kernel launches per kernel name; each wrapper adds one
 where it launches its kernel and nowhere else.
+
+A process that must not compile (a mesh rank, `parallel.mesh`: several
+ranks would run ``nvcc`` into one directory) sets ``LOAD_ONLY``; it then
+loads the library its parent built, or raises.
 """
 
 from __future__ import annotations
@@ -31,6 +35,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _COMPILE_FLAGS = [f for f in NVCC_FLAGS if f != "-shared"]
 
 LAUNCHES: collections.Counter = collections.Counter()
+
+#: True in a process that only loads the built library and never compiles
+LOAD_ONLY = False
 
 _lock = threading.Lock()
 _lib = None
@@ -71,6 +78,10 @@ def build() -> str:
     lib_path = os.path.join(out_dir, LIB_NAME)
     if os.path.isfile(lib_path):
         return lib_path
+    if LOAD_ONLY:
+        raise RuntimeError(f"no kernel library at {lib_path}, and this process only loads "
+                           f"one: its parent builds the kernels (build.build()) before it "
+                           f"starts it")
     os.makedirs(out_dir, exist_ok=True)
     tag = f"tmp{os.getpid()}"
     nvcc = _nvcc()

@@ -22,7 +22,6 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
-import secrets
 import shutil
 import subprocess
 import threading
@@ -181,20 +180,32 @@ class NativeMeshNet:
         raw = out.raw
         return [raw[i * len(mine):(i + 1) * len(mine)] for i in range(n)]
 
-    def atomic_broadcast_bytes(self, mine: bytes, chan: int = 0) -> list:
-        """Commit-then-open broadcast: one round of blake2b(salt || msg)
-        commitments, one of openings, every opening checked against its
-        commitment (an equivocating party raises `AssertionError`)."""
-        salt = secrets.token_bytes(16)
-        coms = self.broadcast_bytes(hashlib.blake2b(salt + mine, digest_size=32).digest(),
-                                    chan=chan)
-        opens = self.broadcast_bytes(salt + mine, chan=chan)
+    def swap_bytes(self, outgoing, nbytes: int, chan: int = 0) -> list:
+        """Point to point: ``outgoing[j]`` (``nbytes`` bytes) goes to each
+        peer j, and each peer's frame for this party comes back, by party
+        (this party's own slot is ``outgoing[me]``).  The mesh's reader
+        threads take every frame in, so the sends cannot block."""
+        me, n = self.party_id, self.n_parties
+        for j in range(n):
+            if j != me:
+                self.send_bytes(j, outgoing[j], chan=chan)
         out = []
-        for i, (c, o) in enumerate(zip(coms, opens)):
-            if hashlib.blake2b(o, digest_size=32).digest() != c:
-                raise AssertionError(f"atomic broadcast: party {i} equivocated")
-            out.append(o[16:])
+        for j in range(n):
+            b = outgoing[me] if j == me else self.recv_bytes(j, max_len=nbytes, chan=chan)
+            if len(b) != nbytes:
+                raise ConnectionError(f"party {me}: a frame of {len(b)} bytes from party {j} "
+                                      f"where {nbytes} are due")
+            out.append(b)
         return out
+
+    def atomic_broadcast_bytes(self, mine: bytes, chan: int = 0) -> list:
+        """Commit-then-open broadcast with an echo of the commitments
+        (`transport.atomic_broadcast_bytes` over `swap_bytes`): an
+        equivocating party raises `AssertionError` in every honest one.
+        The JAX package's mesh runs the two rounds without the echo, so
+        the two packages' parties share no atomic broadcast."""
+        return T.atomic_broadcast_bytes(lambda out, nbytes: self.swap_bytes(out, nbytes, chan),
+                                        self.party_id, self.n_parties, mine)
 
     def gather_to_leader(self, mine: bytes, chan: int = 0):
         """Every party's buffer on party 0 (a list by id), None elsewhere
@@ -255,7 +266,7 @@ def _from_wire(b: bytes, shape) -> np.ndarray:
     return np.frombuffer(b, dtype="<u4").reshape(shape).astype(np.int64)
 
 
-class SocketTransport(T.Transport):
+class SocketTransport(T.OnePartyTransport):
     """One party of the mesh, in this process: share tensors keep a party
     axis of length 1 (the party's own row), and a collective copies the
     tensor to the host, moves it as uint32 limbs through the mesh, sums or
@@ -268,7 +279,6 @@ class SocketTransport(T.Transport):
         self.net = net
         self.n_parties = net.n_parties
         self.party_id = net.party_id
-        self.rows = 1
         self.device = torch.device(device)
 
     def _exchange(self, x, bcast):
@@ -323,14 +333,3 @@ class SocketTransport(T.Transport):
         out = torch.from_numpy(_from_wire(mine, (1,) + shape)).to(self.device)
         self.stats.record(out)
         return out
-
-    def party_index(self, batch_ndim: int):
-        return torch.full((1,) + (1,) * batch_ndim, self.party_id, dtype=torch.int64,
-                          device=self.device)
-
-    @property
-    def row_ids(self) -> list:
-        return [self.party_id]
-
-    def own_rows(self, x):
-        return x[self.party_id:self.party_id + 1]

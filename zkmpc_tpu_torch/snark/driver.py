@@ -87,19 +87,22 @@ def deal(vals, n_parties: int, device="cuda"):
 
 def make_prove_fn(dpk: groth16.DeviceProvingKey, n_parties: int):
     """Returns (fn, example_args): fn(a_limbs, b_limbs, generator, r=None,
-    s=None) -> proof arrays.  a_limbs/b_limbs: [P, n, nlimbs] additive
-    shares of the gate inputs; r/s: optional injected share tensors."""
+    s=None, transport=None) -> proof arrays.  a_limbs/b_limbs: [P, n,
+    nlimbs] additive shares of the gate inputs (every party's; a transport
+    that plays one party takes its own rows); r/s: optional injected share
+    tensors.  ``transport``: the transport to run on (a fresh
+    StackedTransport by default)."""
     pk = dpk.pk
     dev = dpk.device
     n_gates = pk.num_witness // 3
     mats = groth16.device_matrices_from_pk(pk, dev)
 
-    def step(a_limbs, b_limbs, generator, r=None, s=None):
-        t = T.StackedTransport(n_parties, dev)
+    def step(a_limbs, b_limbs, generator, r=None, s=None, transport=None):
+        t = transport or T.StackedTransport(n_parties, dev)
         with mpc_scope(MpcContext(t, backend="semi")):
             cs2 = ConstraintSystem(FR)
-            a = MpcFp(FpArray(a_limbs, FR, 2), SHARED)
-            b = MpcFp(FpArray(b_limbs, FR, 2), SHARED)
+            a = MpcFp(FpArray(t.own_rows(a_limbs), FR, 2), SHARED)
+            b = MpcFp(FpArray(t.own_rows(b_limbs), FR, 2), SHARED)
             build_wide_mul_circuit(cs2, a, b)
             return _proof_arrays(groth16.prove(dpk, cs2, generator, matrices=mats,
                                                r=r, s=s))
@@ -256,6 +259,24 @@ def pk_from_host(fields: dict) -> groth16.ProvingKey:
         num_constraints=int(fields["num_constraints"]),
         domain_n=int(fields["domain_n"]), num_witness=int(fields["num_witness"]),
         matrices_coo=mats)
+
+
+def dpk_to_host(dpk: groth16.DeviceProvingKey) -> dict:
+    """The device proving key in the reference's picklable host layout
+    (``zkmpc_tpu/snark/driver.py:dpk_to_host``): ``pts[name]`` = (x, y, z,
+    inf) with each coordinate ("fp", limbs) or ("fp2", c0 limbs, c1 limbs)
+    as numpy int64, and ``pk`` the ProvingKey; `dpk_from_host` inverts it."""
+    def coord(c):
+        if isinstance(c, Fp2Array):
+            return ("fp2", c.c0.limbs.cpu().numpy(), c.c1.limbs.cpu().numpy())
+        return ("fp", c.limbs.cpu().numpy())
+
+    def pt(p):
+        if p is None:
+            return None
+        return (coord(p.x), coord(p.y), coord(p.z), p.inf.cpu().numpy())
+    return dict(pk=dpk.pk, pts={k: pt(getattr(dpk, k))
+                                for k in groth16.DeviceProvingKey.POINTS})
 
 
 def dpk_from_host(doc, device="cuda") -> groth16.DeviceProvingKey:
