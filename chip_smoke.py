@@ -48,7 +48,13 @@ torch.distributed group on the one card, over gloo (`parallel.mesh`),
 prove phase 4's circuit with their own private seeds and must give the
 stacked proof under the same seeds; then bit decompositions, comparisons,
 private draws and the JAX package's two mesh protocols, whose opened
-values and rows must equal the stacked run's.
+values and rows must equal the stacked run's.  Phase 13 runs the chips
+axis: 3 parties x 2 chips, six ranks on the one card over gloo, each
+party's MSMs split across its two chip ranks (`parallel.sharded`); every
+rank proves phase 12's circuit with phase 12's key, inputs and seeds and
+must give its stacked proof, every MSM call must have gathered over the
+chips group, and the four-step NTT over the chips must equal each rank's
+own NTT.
 
     python3 chip_smoke.py              # needs one CUDA card
     python3 chip_smoke.py --gates 64   # a quicker main-path run
@@ -1822,8 +1828,9 @@ def phase_modules(n_parties=3, seed=11):
     return total
 
 
-#: the values of phase 12 (b): bit decompositions and comparisons
-MESH_BITS = 64
+#: the values of phase 12 (b): bit decompositions and comparisons (64
+#: through PR 12; 16 since phase 13 joined the script's 1,200 s)
+MESH_BITS = 16
 
 
 def _mesh_protocols(t, seeds, inputs):
@@ -1890,7 +1897,7 @@ def _mesh_rank(t, key_path, a_limbs, b_limbs, seeds, inputs):
     return rep
 
 
-def phase_mesh(dpk, n_gates, n_parties=3, timeout=600, seed=12):
+def phase_mesh(dpk, n_gates, workdir, n_parties=3, timeout=600, seed=12):
     """Phase 12: the party-axis mesh on the card, one rank (OS process) a
     party in a torch.distributed group (`parallel.mesh.run_parties`), all
     ranks on one device, so the backend is gloo and the collectives go
@@ -1905,10 +1912,12 @@ def phase_mesh(dpk, n_gates, n_parties=3, timeout=600, seed=12):
     rank's opened values equal the stacked run's and the plain values, and
     its rows of each share equal the stacked run's row.  Per rank: key
     load and prove seconds, openings and bytes moved, peak device memory,
-    K1/K2/K3 launches, and no JAX module loaded.  Returns the launches of
-    the stacked runs and the ranks."""
+    K1/K2/K3 launches, and no JAX module loaded.  The key file stays in
+    ``workdir``.  Returns the launches of the stacked runs and the ranks,
+    and what phase 13 reuses: the key file, the re-shared inputs, the
+    seeds, the stacked proof, the verifying key and domain size, and rank
+    0's launches."""
     import secrets
-    import tempfile
 
     import numpy as np
     import torch
@@ -1961,16 +1970,15 @@ def phase_mesh(dpk, n_gates, n_parties=3, timeout=600, seed=12):
     for name, v in plain.items():
         if stacked[name][1] != v:
             raise AssertionError(f"phase 12: the stacked {name} opens wrong values")
-    with tempfile.TemporaryDirectory(prefix="zkmpc_phase12_") as d:
-        key_path = os.path.join(d, "dpk.pkl")
-        t0 = time.time()
-        mesh.write_key(dpk, key_path)
-        t_key = time.time() - t0
-        t0 = time.time()
-        ranks = mesh.run_parties(_mesh_rank, n_parties, dev, "gloo", timeout,
-                                 args=(key_path, a_l.cpu().numpy(), b_l.cpu().numpy(), seeds,
-                                       inputs))
-        wall = time.time() - t0
+    key_path = os.path.join(workdir, "dpk.pkl")
+    t0 = time.time()
+    mesh.write_key(dpk, key_path)
+    t_key = time.time() - t0
+    a_np, b_np = a_l.cpu().numpy(), b_l.cpu().numpy()
+    t0 = time.time()
+    ranks = mesh.run_parties(_mesh_rank, n_parties, dev, "gloo", timeout,
+                             args=(key_path, a_np, b_np, seeds, inputs))
+    wall = time.time() - t0
     log(f"phase 12 mesh: backend gloo, {n_parties} ranks on one device {dev} "
         f"({ranks[0]['describe']}); stacked prove {t_stacked:.2f} s, stacked protocols "
         f"{t_stacked_protocols:.2f} s, key written in {t_key:.2f} s; ranks "
@@ -2004,6 +2012,142 @@ def phase_mesh(dpk, n_gates, n_parties=3, timeout=600, seed=12):
         f"x*y+x-y = {stacked['x*y+x-y'][1]} and the product 30 open as stacked, every rank's "
         f"rows equal the stacked rows; no rank imported JAX; stacked launches "
         f"{_kernel_counts(dict(K.LAUNCHES))}; in all {_kernel_counts(launches)}")
+    return launches, dict(key_path=key_path, a=a_np, b=b_np, seeds=seeds, proof=want,
+                          vk=dpk.pk.vk, domain_n=dpk.pk.domain_n,
+                          rank_launches=ranks[0]["launches"])
+
+
+#: chips a party in phase 13
+CHIPS = 2
+
+
+def _chips_rank(t, key_path, a_limbs, b_limbs, seeds, ntt_n, chips=None):
+    """One rank of phase 13 (party p, chip c): the wide-mul prove with
+    party p's private seed, its MSMs split over the party's chips group
+    (`parallel.mesh.prove_rank`), then the four-step NTT of ``ntt_n``
+    coefficients over the chips group (`parallel.sharded.sharded_fft` and
+    `sharded_ifft`) held against the rank's own `Domain` NTT; returns its
+    report (seconds, openings and bytes over the party group, gathers and
+    bytes over the chips group, MSM calls, peak device memory, launches of
+    the prove and in all, the loaded modules)."""
+    import numpy as np
+    import torch
+    from zkmpc_tpu_torch.ops import build as K
+    from zkmpc_tpu_torch.ops.limbs import FR, FpArray
+    from zkmpc_tpu_torch.ops.ntt import Domain
+    from zkmpc_tpu_torch.parallel import mesh, sharded
+    dev = t.device
+    torch.cuda.reset_peak_memory_stats(dev)
+    K.reset_launches()
+    rep = mesh.prove_rank(t, key_path, a_limbs, b_limbs, seed=seeds[t.party_id], chips=chips)
+    rep["prove_launches"] = dict(K.LAUNCHES)
+    vals = np.random.default_rng(13).integers(0, 1 << 62, ntt_n, dtype=np.int64)
+    full = FpArray.from_int(FR, np.asarray([int(v) for v in vals], dtype=object), device=dev)
+    per = ntt_n // chips.size
+    lo, hi = chips.index * per, (chips.index + 1) * per
+    rounds, nbytes = chips.transposes.rounds, chips.transposes.bytes_moved
+    torch.cuda.synchronize(dev)
+    t0 = time.time()
+    ev = sharded.sharded_fft(FR, ntt_n, full[lo:hi], chips)
+    back = sharded.sharded_ifft(FR, ntt_n, ev, chips)
+    torch.cuda.synchronize(dev)
+    ntt_s = time.time() - t0
+    want = Domain(FR, ntt_n, dev).fft(full)[lo:hi]
+    rep.update(ntt_s=ntt_s, ntt_ok=list(ev.to_ints()) == list(want.to_ints()),
+               intt_ok=list(back.to_ints()) == [int(v) for v in vals[lo:hi]],
+               ntt_transposes=chips.transposes.rounds - rounds,
+               ntt_transpose_bytes=chips.transposes.bytes_moved - nbytes,
+               on_device=rep["on_device"] and ev.device.type == back.device.type == dev.type,
+               party=t.party_id, chip=chips.index, n_chips=chips.size,
+               peak_device_bytes=torch.cuda.max_memory_allocated(dev),
+               launches=dict(K.LAUNCHES), describe=t.describe(),
+               modules=mesh.forbidden_modules())
+    return rep
+
+
+def phase_chips(shared, n_gates, n_parties=3, n_chips=CHIPS, timeout=600):
+    """Phase 13: the chips axis on the card, the 3 x 2 mesh of
+    ``__graft_entry__.dryrun_multichip``: n_parties x n_chips ranks (OS
+    processes) on the one device over gloo, party p, chip c at rank
+    p*C + c (`parallel.mesh.run_parties(n_chips=...)`).  Each rank proves
+    the wide-mul circuit at ``n_gates`` gates with phase 12's key file,
+    re-shared inputs and its party's fresh 256-bit seed, its openings over
+    its party group and each MSM split over its party's chips group; every
+    rank's proof must equal phase 12's stacked proof (so both chips of a
+    party agree), which verifies and rejects a wrong instance.  Then the
+    four-step NTT over each chips group at the prove's domain size, held
+    against the rank's own NTT.  Fails unless the split ran: each rank's
+    gathers over its chips group equal its MSM calls, more than none, and
+    its prove launched fewer K2 and K3 than phase 12's one-chip rank.  Per
+    rank: key load and prove seconds, openings and bytes, gathers and
+    bytes, peak device memory, launches, and no JAX module loaded.
+    Returns the ranks' launches."""
+    import torch
+    from zkmpc_tpu_torch.ops.limbs import FR
+    from zkmpc_tpu_torch.parallel import mesh
+    from zkmpc_tpu_torch.snark import driver, groth16
+    dev = torch.device(DEVICE)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    ntt_n = shared["domain_n"]
+    want, one_chip = shared["proof"], shared["rank_launches"]
+    t0 = time.time()
+    ranks = mesh.run_parties(_chips_rank, n_parties, dev, "gloo", timeout, n_chips=n_chips,
+                             args=(shared["key_path"], shared["a"], shared["b"],
+                                   shared["seeds"], ntt_n))
+    wall = time.time() - t0
+    log(f"phase 13 chips: backend gloo, {n_parties} parties x {n_chips} chips on one device "
+        f"{dev} ({ranks[0]['describe']}); ranks {wall:.2f} s wall-clock")
+    proofs = {}
+    launches = {}
+    for i, r in enumerate(ranks):
+        who = f"phase 13 rank {i} (party {r['party']}, chip {r['chip']})"
+        if (r["party"], r["chip"], r["n_chips"]) != divmod(i, n_chips) + (n_chips,):
+            raise AssertionError(f"{who}: rank {i} is not party {i // n_chips}, chip "
+                                 f"{i % n_chips}")
+        if r["modules"]:
+            raise AssertionError(f"{who} imported {r['modules'][:5]}")
+        if not r["on_device"]:
+            raise AssertionError(f"{who}: a result left the card")
+        if r["proof"] != want:
+            raise AssertionError(f"{who}: its proof differs from the stacked proof")
+        if not (r["ntt_ok"] and r["intt_ok"]):
+            raise AssertionError(f"{who}: the four-step NTT differs from the rank's own NTT")
+        if not r["chips_gathers"] == r["msm_calls"] > 0:
+            raise AssertionError(f"{who}: {r['msm_calls']} MSM calls but {r['chips_gathers']} "
+                                 f"gathers over the chips group: an MSM ran unsplit")
+        pl = r["prove_launches"]
+        for k in ("point_add_g1", "point_add_g2"):
+            if not 0 < pl.get(k, 0) < one_chip.get(k, 0):
+                raise AssertionError(f"{who}: its prove launched {k} {pl.get(k, 0)} times, not "
+                                     f"fewer than phase 12's one-chip rank's "
+                                     f"{one_chip.get(k, 0)}")
+        if min(r["launches"].get(k, 0) for k in KERNELS) <= 0:
+            raise AssertionError(f"{who} never launched one of {list(KERNELS)}: "
+                                 f"{r['launches']}")
+        proofs[(r["party"], r["chip"])] = r["proof"]
+        log(f"{who}: key load {r['load_s']:.3f} s, prove {r['prove_s']:.3f} s "
+            f"({r['openings']} openings, {r['bytes']} B over the party group; "
+            f"{r['chips_gathers']} gathers, {r['chips_bytes']} B over the chips group, "
+            f"{r['msm_calls']} MSM calls); NTT and inverse of {ntt_n} {r['ntt_s']:.3f} s "
+            f"({r['ntt_transposes']} transposes, {r['ntt_transpose_bytes']} B); peak device "
+            f"memory {r['peak_device_bytes']} B ({r['peak_device_bytes'] / 2**30:.2f} GiB); "
+            f"prove {_kernel_counts(pl)}, K1 {pl.get('mont_mul', 0)}; in all "
+            f"{_kernel_counts(r['launches'])}, K1 {r['launches'].get('mont_mul', 0)}")
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    for p in range(n_parties):
+        if len({str(proofs[(p, c)]) for c in range(n_chips)}) != 1:
+            raise AssertionError(f"phase 13: the chips of party {p} disagree on the proof")
+    inst = driver.expected_instance(n_gates)
+    if not groth16.verify(shared["vk"], inst, proofs[(0, 0)]):
+        raise AssertionError("phase 13: the proof does not verify")
+    if groth16.verify(shared["vk"], [inst[0], (inst[1] + 1) % FR.p], proofs[(0, 0)]):
+        raise AssertionError("phase 13: a wrong instance verified")
+    log(f"phase 13: every rank's proof equals the stacked proof, both chips of each party "
+        f"agree, it verifies and rejects a wrong instance; every MSM split over the chips "
+        f"group; the four-step NTT of {ntt_n} equals the rank's own; no rank imported JAX; "
+        f"in all {_kernel_counts(launches)}, K1 {launches.get('mont_mul', 0)}")
     return launches
 
 
@@ -2041,10 +2185,14 @@ def main(argv=None):
         werewolf = timed("9", phase_werewolf)
         socket = timed("10", phase_socket, online, work)
     modules = timed("11", phase_modules)
-    mesh = timed("12", phase_mesh, wide_dpk, args.gates)
-    paths = (wide, ped, main_bin, spdz, marlin, werewolf, socket, modules, mesh)
+    with tempfile.TemporaryDirectory(prefix="zkmpc_mesh_key_") as keydir:
+        mesh, shared = timed("12", phase_mesh, wide_dpk, args.gates, keydir)
+        chips = timed("13", phase_chips, shared, args.gates)
+    paths = {"4": wide, "5": ped, "6": main_bin, "7": spdz, "8": marlin, "9": werewolf,
+             "10": socket, "11": modules, "12": mesh, "13": chips}
     log("seconds by phase: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
-    launches = {k: sum(p.get(k, 0) for p in paths) for k in set().union(*paths)}
+    launches = {k: sum(p.get(k, 0) for p in paths.values())
+                for k in set().union(*paths.values())}
     bad = sorted(m for m in sys.modules if m in ("jax", "zkmpc_tpu")
                  or m.startswith(("jax.", "jaxlib", "zkmpc_tpu.")))
     if bad:
@@ -2057,7 +2205,8 @@ def main(argv=None):
                         "replaces": replaces, "launches": launches.get(name, 0),
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                        "bound_by": r["bound_by"], "library_ms": None})
+                        "bound_by": r["bound_by"], "library_ms": None,
+                        "launches_by_phase": {ph: p.get(name, 0) for ph, p in paths.items()}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

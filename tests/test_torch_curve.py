@@ -2,7 +2,10 @@
 the JAX package on the same inputs.
 
 The plain twin of kernels K2/K3 is the reference's XLA formula, so its
-Jacobian limbs must equal `zkmpc_tpu.ops.curve.sw_add_complete`'s exactly.
+Jacobian limbs must equal `zkmpc_tpu.ops.curve.sw_add_complete`'s exactly;
+the JAX package's limbs on these inputs are read from
+``fixtures/torch_xla.npz`` (`fixtures/make_torch_xla_fixture.py`), which
+the ``slow`` `test_xla_fixture_against_live_reference` regenerates.
 The fused Pallas kernel tightens its inputs first and so may leave other
 Jacobian limbs: against it the affine values and infinity flags must match.
 """
@@ -12,8 +15,8 @@ import pytest
 import torch
 
 from chip_smoke import case_points, limbs_at_b
+from fixtures import make_torch_xla_fixture as XF
 from torch_parity import CPU, point_leaves_np, point_to_jax, point_to_torch, rand_ints
-from zkmpc_tpu.ops import curve as JC
 from zkmpc_tpu.ops import pallas_point as PPT
 from zkmpc_tpu.spec import curves as SC
 from zkmpc_tpu_torch.ops import build as K
@@ -50,8 +53,8 @@ def _all_cases(group):
 def test_complete_add_plain_matches_xla_path(group):
     p, q, exp = _all_cases(group)
     got = cuda_point.point_add(p, q)
-    ref = point_to_torch(JC.sw_add_complete(point_to_jax(p), point_to_jax(q)))
-    for g, r in zip(point_leaves_np(got), point_leaves_np(ref)):
+    ref = XF.ref(f"complete_add.{'g1' if group is G1 else 'g2'}")
+    for g, r in zip(point_leaves_np(got), ref, strict=True):
         np.testing.assert_array_equal(g, r)
     assert got.to_affine_ints() == exp
 
@@ -79,16 +82,30 @@ def test_point_add_wrapper_on_cpu_and_kernel_refuses_cpu_points():
         cuda_point.sw_add_complete_cuda(p, q)
 
 
-def test_double_unsafe_add_and_neg_match_xla_path():
+def _point_op_inputs():
+    """The G1 points of `test_double_unsafe_add_and_neg_match_xla_path`."""
     gen, mul, _, _, make = G1
-    p = make([mul(gen, k) for k in (3, 4, 9)], CPU)
-    q = make([mul(gen, k) for k in (5, 11, 2)], CPU)
-    jp, jq = point_to_jax(p), point_to_jax(q)
-    for got, ref in ((TC.sw_double(p), JC.sw_double(jp)),
-                     (TC.sw_add_unsafe(p, q), JC.sw_add_unsafe(jp, jq)),
-                     (TC.sw_neg(p), JC.sw_neg(jp))):
-        for g, r in zip(point_leaves_np(got), point_leaves_np(point_to_torch(ref))):
+    return (make([mul(gen, k) for k in (3, 4, 9)], CPU),
+            make([mul(gen, k) for k in (5, 11, 2)], CPU))
+
+
+def test_double_unsafe_add_and_neg_match_xla_path():
+    p, q = _point_op_inputs()
+    for got, name in ((TC.sw_double(p), "double"), (TC.sw_add_unsafe(p, q), "add_unsafe"),
+                      (TC.sw_neg(p), "neg")):
+        for g, r in zip(point_leaves_np(got), XF.ref(name), strict=True):
             np.testing.assert_array_equal(g, r)
+
+
+@pytest.mark.slow
+def test_xla_fixture_against_live_reference():
+    """Regenerates every case of ``fixtures/torch_xla.npz`` with the JAX
+    package and holds the committed file against it."""
+    live, committed = XF.load(XF.generate()), XF.load(np.load(XF.PATH))
+    assert sorted(live) == sorted(committed)
+    for name, arrays in live.items():
+        for a, b in zip(arrays, committed[name], strict=True):
+            np.testing.assert_array_equal(a, b)
 
 
 @pytest.mark.parametrize("group,nbits", [(G1, None), (G2, 64)], ids=["g1", "g2"])
@@ -108,8 +125,12 @@ def test_scalar_mul_matches_spec(group, nbits):
 @pytest.mark.parametrize("group,nbits", [(G1, None), (G2, 64)], ids=["g1", "g2"])
 def test_fixed_base_mul_matches_spec(group, nbits):
     """One base point broadcast against a [2, 3] batch of scalars (as the
-    setup's query products and the group triples use the ladder) against
-    `spec.curves` on 0, 1, the top scalar and random ones."""
+    group triples use the ladder), and the setup's fixed-base comb
+    (`groth16._fixed_base_muls`: window bases 2^(4j) G from the host,
+    `curve.sw_fixed_base_mul` on the batch) on the same scalars and one
+    whose every digit is 15, against `spec.curves` on 0, 1, the top scalar
+    and random ones."""
+    from zkmpc_tpu_torch.snark import groth16
     gen, mul, _, _, make = group
     rng = np.random.default_rng(8)
     top = TL.FR.p - 1 if nbits is None else 2**nbits - 1
@@ -118,6 +139,10 @@ def test_fixed_base_mul_matches_spec(group, nbits):
     got = TC.sw_scalar_mul(make([gen], CPU)[0], sc, nbits)
     assert got.shape == (2, 3)
     assert got.reshape((6,)).to_affine_ints() == [mul(gen, k) for k in ks]
+    ks += [2**252 - 1]
+    comb = groth16._fixed_base_muls(gen, group is G2, ks, CPU)
+    assert comb.shape == (7,)
+    assert comb.to_affine_ints() == [mul(gen, k) for k in ks]
 
 
 def test_scalar_bits_are_integer_bits():

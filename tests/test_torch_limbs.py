@@ -3,22 +3,23 @@ against the JAX package on the same inputs.
 
 Tolerance is exact everywhere: this is modular integer arithmetic, and the
 port keeps the reference's limb algorithm and bound rules, so the limbs
-themselves must match (not only the values they stand for).
+themselves must match (not only the values they stand for).  The JAX
+package's side of the K1 and FpArray/Fp2Array cases comes from
+``fixtures/torch_xla.npz`` (`fixtures/make_torch_xla_fixture.py`, made on
+these tests' inputs; ``test_torch_curve.py`` regenerates it under ``slow``).
 """
 
 import os
 import subprocess
 import sys
 
-import jax
 import numpy as np
 import pytest
 import torch
 
+from fixtures import make_torch_xla_fixture as XF
 from torch_parity import CPU, fp_to_torch, jspec, limbs_np, rand_ints
-from zkmpc_tpu.ops import fp2 as JF2
 from zkmpc_tpu.ops import limbs as JL
-from zkmpc_tpu.ops.pallas_fp import mont_mul_pallas
 from zkmpc_tpu_torch.ops import build as K
 from zkmpc_tpu_torch.ops import cuda_fp
 from zkmpc_tpu_torch.ops import fp2 as TF2
@@ -57,33 +58,44 @@ def test_field_spec_tables_match(spec):
         np.testing.assert_array_equal(d, rd)
 
 
-@pytest.mark.parametrize("spec", FIELDS, ids=IDS)
-def test_mont_mul_plain_matches_xla_path(spec):
-    """Canonical, relaxed (bound 2) and constant-b operands: the plain twin
-    of K1 gives the XLA path's limbs bit for bit."""
+def _mont_cases(spec, with_values=False):
+    """K1's operands of `test_mont_mul_plain_matches_xla_path`: canonical,
+    relaxed (bound 2) and 1-D constant-b limbs (JAX arrays)."""
     xs, ys, a, b = _pair(spec, 37, seed=1)
-    js = jspec(spec)
     a2 = a + a                                        # relaxed limbs, bound 2
     cases = [(a.limbs, b.limbs), (a2.limbs, b.limbs),
              (a2.limbs, np.asarray(b.limbs)[5])]      # 1-D constant b
-    for la, lb in cases:
-        want = np.asarray(jax.jit(JL._mont_mul_limbs, static_argnums=0)(js, la, lb))
+    return (cases, xs, ys, a2, b) if with_values else cases
+
+
+@pytest.mark.parametrize("spec", FIELDS, ids=IDS)
+def test_mont_mul_plain_matches_xla_path(spec):
+    """Canonical, relaxed (bound 2) and constant-b operands: the plain twin
+    of K1 gives the XLA path's limbs (``limbs._mont_mul_limbs``) bit for
+    bit."""
+    cases, xs, ys, a2, b = _mont_cases(spec, with_values=True)
+    for (la, lb), want in zip(cases, XF.ref(f"mont_mul_xla.{spec.name}"), strict=True):
         got = cuda_fp.mont_mul(spec, torch.as_tensor(limbs_np(la)),
                                torch.as_tensor(limbs_np(lb)))
-        np.testing.assert_array_equal(got.numpy(), want.astype(np.int64))
+        np.testing.assert_array_equal(got.numpy(), want)
     got = TL.FpArray(cuda_fp.mont_mul_plain(
         spec, fp_to_torch(a2).limbs, fp_to_torch(b).limbs), spec, 2).to_ints()
     assert list(got) == [2 * x * y % spec.p for x, y in zip(xs, ys)]
 
 
+def _pallas_inputs(spec):
+    """The relaxed a (bound 2) and b of the Pallas K1 case (JAX FpArrays)."""
+    _, _, a, b = _pair(spec, 9, seed=2)
+    return a + a, b
+
+
 @pytest.mark.parametrize("spec", [TL.FR, TL.FQ], ids=["bls12_377_fr", "bls12_377_fq"])
 def test_mont_mul_plain_matches_pallas_interpret(spec):
-    _, _, a, b = _pair(spec, 9, seed=2)
-    a2 = a + a
-    want = np.asarray(mont_mul_pallas(jspec(spec), np.asarray(a2.limbs),
-                                      np.asarray(b.limbs), "interpret"))
+    """The plain twin against the Pallas kernel K1 in interpret mode."""
+    a2, b = _pallas_inputs(spec)
+    (want,) = XF.ref(f"mont_mul_pallas.{spec.name}")
     got = cuda_fp.mont_mul_plain(spec, fp_to_torch(a2).limbs, fp_to_torch(b).limbs)
-    np.testing.assert_array_equal(got.numpy(), want.astype(np.int64))
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 @pytest.mark.parametrize("spec", [TL.FR, TL.MNT4Q], ids=["bls12_377_fr", "mnt4_753_fq"])
@@ -116,65 +128,104 @@ def test_wrappers_use_plain_twin_on_cpu_and_refuse_cpu_tensors_for_kernel():
         cuda_fp.mont_mul_cuda(spec, ta, tb)
 
 
+def _fparray_inputs(with_values=False):
+    """The FR operands of `test_fparray_ops_match_reference` (JAX
+    FpArrays), a's third element 0."""
+    xs, ys, a, b = _pair(TL.FR, 6, seed=4)
+    xs[2] = 0
+    a = JL.FpArray.from_int(JL.FR, np.asarray(xs, dtype=object))
+    return (a, b, xs, ys) if with_values else (a, b)
+
+
+def _fparray_ops(a, b, grow=lambda a, b: a + a + b):
+    """The operations of `test_fparray_ops_match_reference`, in either
+    package: their results, and the grown operand."""
+    big = a
+    grown = []
+    for _ in range(5):                  # grow the bound past the budget
+        big = grow(big, b)
+        grown.append(big)
+    return grown + [a - b, big - a, a * b, big * big, big.smul(7), -a,
+                    big.tighten(), a.inv(), a.pow_const(5)], big
+
+
 def test_fparray_ops_match_reference():
     """+, -, *, smul, neg, tighten, inv (scanned pow), canonical limbs,
     integer limbs and zero tests give the reference's limbs and bounds."""
     spec = TL.FR
-    xs, ys, a, b = _pair(spec, 6, seed=4)
-    xs[2] = 0
-    a = JL.FpArray.from_int(JL.FR, np.asarray(xs, dtype=object))
+    a, b, xs, ys = _fparray_inputs(with_values=True)
     ta, tb = fp_to_torch(a), fp_to_torch(b)
-
-    def same(t, j):
-        assert t.bound == j.bound
-        np.testing.assert_array_equal(t.limbs.numpy(), limbs_np(j.limbs))
-
-    def ops(a, b, grow=lambda a, b: a + a + b):
-        big = a
-        grown = []
-        for _ in range(5):                  # grow the bound past the budget
-            big = grow(big, b)
-            grown.append(big)
-        return grown + [a - b, big - a, a * b, big * big, big.smul(7), -a,
-                        big.tighten(), a.inv(), a.pow_const(5)], big
-
-    # (the reference under jit: one compile instead of many eager ones)
-    (want, jbig), (got, tbig) = jax.jit(ops)(a, b), ops(ta, tb)
-    for t, j in zip(got, want):
-        same(t, j)
-    np.testing.assert_array_equal(tbig.canon_limbs().numpy(),
-                                  limbs_np(jax.jit(lambda x: x.canon_limbs())(jbig)))
-    np.testing.assert_array_equal(tbig.int_limbs().numpy(),
-                                  limbs_np(jax.jit(lambda x: x.int_limbs())(jbig)))
-    np.testing.assert_array_equal(ta.is_zero().numpy(),
-                                  np.asarray(jax.jit(lambda x: x.is_zero())(a)))
+    got, tbig = _fparray_ops(ta, tb)
+    ref = XF.ref("fparray_ops")
+    assert len(ref) == 2 * len(got) + 3
+    for i, t in enumerate(got):
+        assert t.bound == int(ref[2 * i + 1])
+        np.testing.assert_array_equal(t.limbs.numpy(), ref[2 * i])
+    canon, ints, zero = ref[-3:]
+    np.testing.assert_array_equal(tbig.canon_limbs().numpy(), canon)
+    np.testing.assert_array_equal(tbig.int_limbs().numpy(), ints)
+    np.testing.assert_array_equal(ta.is_zero().numpy(), zero)
     assert list(ta.to_ints()) == [x % spec.p for x in xs]
     assert list((ta * tb).to_ints()) == [x * y % spec.p for x, y in zip(xs, ys)]
 
 
-def test_fp2_ops_match_reference():
-    spec = TL.FQ
+def _fp2_inputs():
+    """Eight pairs of Fq2 values for each operand of `test_fp2_ops_match_reference`."""
     rng = np.random.default_rng(5)
     arr = np.empty(8, dtype=object)
     arr2 = np.empty(8, dtype=object)
     for i in range(8):
-        arr[i] = tuple(rand_ints(rng, spec.p, 2))
-        arr2[i] = tuple(rand_ints(rng, spec.p, 2))
-    ja, jb = JF2.Fp2Array.from_int(arr), JF2.Fp2Array.from_int(arr2)
+        arr[i] = tuple(rand_ints(rng, TL.FQ.p, 2))
+        arr2[i] = tuple(rand_ints(rng, TL.FQ.p, 2))
+    return arr, arr2
+
+
+def _fp2_ops(a, b):
+    return a * b, a.square(), a - b.smul(3)
+
+
+def test_fp2_ops_match_reference():
+    arr, arr2 = _fp2_inputs()
     ta, tb = TF2.Fp2Array.from_int(arr, device=CPU), TF2.Fp2Array.from_int(arr2, device=CPU)
-
-    def same(t, j):
-        for tc, jc in ((t.c0, j.c0), (t.c1, j.c1)):
-            assert tc.bound == jc.bound
-            np.testing.assert_array_equal(tc.limbs.numpy(), limbs_np(jc.limbs))
-
-    def ops(a, b):
-        return a * b, a.square(), a - b.smul(3)
-
-    for t, j in zip(ops(ta, tb), jax.jit(ops)(ja, jb)):
-        same(t, j)
+    got = [c for t in _fp2_ops(ta, tb) for c in (t.c0, t.c1)]
+    ref = XF.ref("fp2_ops")
+    assert len(ref) == 2 * len(got)
+    for i, t in enumerate(got):
+        assert t.bound == int(ref[2 * i + 1])
+        np.testing.assert_array_equal(t.limbs.numpy(), ref[2 * i])
     # inv is FpArray.inv (held against the reference above) on the norm
     assert [tuple(v) for v in (ta * ta.inv()).to_ints()] == [(1, 0)] * 8
+
+
+def test_mul_many_equals_separate_products():
+    """`mul_many` stacks several products into one Montgomery multiply:
+    each result has the limbs and bound of its own ``*`` or ``square`` (Fq
+    and Fq2 squares and products, an operand broadcast against a batch, an
+    operand past the bound budget that its own ``*`` tightens first)."""
+    rng = np.random.default_rng(11)
+    fq = [TL.FpArray.from_int(TL.FQ, np.asarray(rand_ints(rng, TL.FQ.p, 8), dtype=object),
+                              device=CPU) for _ in range(3)]
+    x, y, z = fq
+    wide = x + y + z + x                                   # bound 8
+    loose = TL.FpArray(y.limbs, TL.FQ, TL.FQ.mul_bound_budget)
+    one = TL.FpArray(x.limbs[:1], TL.FQ, 2)                # [1], broadcast
+    pairs = [(x, None), (wide, y), (one, z), (loose, wide), (z, x)]
+    want = [a * a if b is None else a * b for a, b in pairs]
+    got = TL.mul_many(pairs)
+    assert loose.bound * wide.bound > TL.FQ.mul_bound_budget
+    for g, w in zip(got, want, strict=True):
+        assert g.bound == w.bound and torch.equal(g.limbs, w.limbs)
+    arr, arr2 = _fp2_inputs()
+    ta, tb = TF2.Fp2Array.from_int(arr, device=CPU), TF2.Fp2Array.from_int(arr2, device=CPU)
+    got = TL.mul_many([(ta, None), (ta, tb), (x, y)])
+    parts = [got[0].c0, got[0].c1, got[1].c0, got[1].c1, got[2]]
+    sq, prod = ta.square(), ta * tb
+    for g, w in zip(parts, [sq.c0, sq.c1, prod.c0, prod.c1, x * y], strict=True):
+        assert g.bound == w.bound and torch.equal(g.limbs, w.limbs)
+    # and the reference's square and product (`test_fp2_ops_match_reference`)
+    ref = XF.ref("fp2_ops")
+    for g, i in zip(parts[:4], (4, 6, 0, 2)):
+        np.testing.assert_array_equal(g.limbs.numpy(), ref[i])
 
 
 def test_ints_to_limbs_roundtrip():

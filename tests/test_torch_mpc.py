@@ -3,18 +3,17 @@ stacked transport at 3 parties, against the JAX package and host ints.
 
 Shares are made with numpy from a seed and given to both packages.  The
 dummy triple source is deterministic, so Beaver products must match the
-reference limb for limb; group results are compared in affine ints.
+reference limb for limb; group results are compared in affine ints.  The
+JAX package's Beaver product and `uniform_fp` draws come from
+``fixtures/torch_xla.npz`` (`fixtures/make_torch_xla_fixture.py`).
 """
 
-import jax
 import numpy as np
 import torch
 
-from torch_parity import CPU, fp_to_torch, limbs_np, rand_ints
-from zkmpc_tpu.mpc import rand as JR
-from zkmpc_tpu.mpc import share as JS
+from fixtures import make_torch_xla_fixture as XF
+from torch_parity import CPU, fp_to_torch, rand_ints
 from zkmpc_tpu.ops import limbs as JL
-from zkmpc_tpu.parallel import transport as JT
 from zkmpc_tpu.spec import curves as SC
 from zkmpc_tpu_torch.mpc import group as TG
 from zkmpc_tpu_torch.mpc import rand as TR
@@ -40,25 +39,25 @@ def _torch_ctx():
     return TS.MpcContext(TT.StackedTransport(NP, CPU), "semi")
 
 
-def test_beaver_mul_matches_reference():
+def _beaver_inputs():
+    """Host ints xs, ys and JAX FpArrays of their shares [NP, 5]."""
     rng = np.random.default_rng(21)
     xs, ys = rand_ints(rng, P, 5), rand_ints(rng, P, 5)
     jx = JL.FpArray.from_int(JL.FR, _shares(rng, xs))
     jy = JL.FpArray.from_int(JL.FR, _shares(rng, ys))
+    return xs, ys, jx, jy
 
-    def ref(x, y):
-        with JS.mpc_scope(JS.MpcContext(JT.StackedTransport(NP), "semi")):
-            z = JS.beaver_mul(JS.MpcFp(x, JS.SHARED), JS.MpcFp(y, JS.SHARED))
-            return z.value, z.reveal()
 
-    want_share, want_open = jax.jit(ref)(jx, jy)
+def test_beaver_mul_matches_reference():
+    xs, ys, jx, jy = _beaver_inputs()
+    want_share, want_open = XF.ref("beaver_mul")
     with TS.mpc_scope(_torch_ctx()) as c:
         z = TS.beaver_mul(TS.MpcFp(fp_to_torch(jx), TS.SHARED),
                           TS.MpcFp(fp_to_torch(jy), TS.SHARED))
         opened = z.reveal()
         assert c.transport.stats.rounds == 3      # d, e, and the final open
-    np.testing.assert_array_equal(z.value.limbs.numpy(), limbs_np(want_share.limbs))
-    np.testing.assert_array_equal(opened.limbs.numpy(), limbs_np(want_open.limbs))
+    np.testing.assert_array_equal(z.value.limbs.numpy(), want_share)
+    np.testing.assert_array_equal(opened.limbs.numpy(), want_open)
     assert list(opened.to_ints()[0]) == [x * y % P for x, y in zip(xs, ys)]
 
 
@@ -77,18 +76,18 @@ def test_wire_semantics_with_public_values():
         assert list(both.reveal().to_ints()[1]) == [v % P for v in xs] + [5]
 
 
+#: the shape of the JAX package's `uniform_fp` draw under ``PRNGKey(5)``
+#: (`fixtures/make_torch_xla_fixture`) and its raw bits
+UNIFORM_SHAPE = (NP, 4)
+
+
 def test_uniform_fp_with_injected_bits_matches_reference():
     """The JAX draws are reproduced bit for bit once their raw bits are
     injected; the port's own draws come from a torch.Generator."""
-    key = jax.random.PRNGKey(5)
-    shape = (NP, 4)
-    want = jax.jit(JR.uniform_fp, static_argnums=(1, 2))(key, JL.FR, shape)
-    k1, k2 = jax.random.split(key)
-    bits = [np.asarray(jax.random.bits(k, shape + (TL.FR.nlimbs,), dtype=np.uint32),
-                       dtype=np.int64) for k in (k1, k2)]
-    got = TR.uniform_fp(None, TL.FR, shape, device=CPU, bits=bits)
-    assert got.bound == want.bound
-    np.testing.assert_array_equal(got.limbs.numpy(), limbs_np(want.limbs))
+    want_limbs, want_bound, *bits = XF.ref("uniform_fp")
+    got = TR.uniform_fp(None, TL.FR, UNIFORM_SHAPE, device=CPU, bits=bits)
+    assert got.bound == int(want_bound)
+    np.testing.assert_array_equal(got.limbs.numpy(), want_limbs)
     a = TR.uniform_fp(torch.Generator().manual_seed(1), TL.FR, (64,), device=CPU)
     b = TR.uniform_fp(torch.Generator().manual_seed(1), TL.FR, (64,), device=CPU)
     assert torch.equal(a.limbs, b.limbs)

@@ -7,14 +7,13 @@ point additions decides the Jacobian limbs, and the JAX bucketed MSM is too
 compile-heavy on a CPU to run here.
 """
 
-import jax
 import numpy as np
 import pytest
 import torch
 
+from fixtures import make_torch_xla_fixture as XF
 from torch_parity import CPU, fp_to_torch, rand_ints
 from zkmpc_tpu.ops import limbs as JL
-from zkmpc_tpu.ops import ntt as JN
 from zkmpc_tpu.spec import curves as SC
 from zkmpc_tpu_torch.ops import curve as TC
 from zkmpc_tpu_torch.ops import limbs as TL
@@ -28,24 +27,29 @@ G1 = (SC.G1_GEN, SC.g1_mul, SC.g1_add, TC.SWPoint.g1_from_affine_ints)
 G2 = (SC.G2_GEN, SC.g2_mul, SC.g2_add, TC.SWPoint.g2_from_affine_ints)
 
 
-def test_ntt_matches_reference():
+def _ntt_inputs():
+    """Three rows of 16 FR values (host ints) for `test_ntt_matches_reference`."""
     n = 16
     rng = np.random.default_rng(11)
-    vals = np.asarray(rand_ints(rng, TL.FR.p, 3 * n), dtype=object).reshape(3, n)
-    x = JL.FpArray.from_int(JL.FR, vals)
-    jd, td = JN.Domain(JL.FR, n), TN.Domain(TL.FR, n, CPU)
-    tx = fp_to_torch(x)
+    return np.asarray(rand_ints(rng, TL.FR.p, 3 * n), dtype=object).reshape(3, n)
+
+
+def test_ntt_matches_reference():
+    """fft, coset_ifft and the vanishing-polynomial division give the JAX
+    package's limbs and bounds (read from ``fixtures/torch_xla.npz``,
+    `fixtures/make_torch_xla_fixture.py`); the rest against host ints."""
+    vals = _ntt_inputs()
+    n = vals.shape[-1]
+    td = TN.Domain(TL.FR, n, CPU)
+    tx = fp_to_torch(JL.FpArray.from_int(JL.FR, vals))
     # fft and coset_ifft run the butterflies with both twiddle sets and both
     # permutations; ifft and coset_fft compose the same pieces
-    # (jit: one XLA compile per function is ten times cheaper here than
-    # eager dispatch, and integer ops give the same limbs either way)
-    pairs = [(td.fft(tx), jax.jit(jd.fft)(x)),
-             (td.coset_ifft(tx), jax.jit(jd.coset_ifft)(x)),
-             (td.divide_by_vanishing_poly_on_coset(tx),
-              jd.divide_by_vanishing_poly_on_coset(x))]
-    for got, ref in pairs:
-        assert got.bound == ref.bound
-        np.testing.assert_array_equal(got.limbs.numpy(), np.asarray(ref.limbs))
+    got = [td.fft(tx), td.coset_ifft(tx), td.divide_by_vanishing_poly_on_coset(tx)]
+    ref = XF.ref("ntt")
+    assert len(ref) == 2 * len(got)
+    for i, g in enumerate(got):
+        assert g.bound == int(ref[2 * i + 1])
+        np.testing.assert_array_equal(g.limbs.numpy(), ref[2 * i])
     assert td.ifft(td.fft(tx)).to_ints().tolist() == vals.tolist()
     assert td.coset_ifft(td.coset_fft(tx)).to_ints().tolist() == vals.tolist()
     # fft(coeffs)[i] = f(omega^i)

@@ -7,7 +7,8 @@
   or r share fails the bracket check, and mixed bracket and legacy files
   are refused.
 - `inputs.py` (the cases of ``tests/test_inputs.py``, and `input_share`'s
-  shares under the JAX package's mask draws) and `crypto.elgamal` (the case
+  shares under the JAX package's mask draws, both read from
+  ``fixtures/torch_xla.npz``) and `crypto.elgamal` (the case
   of ``tests/test_crypto.py::test_elgamal_roundtrip``).
 - MyCircuit at ``com_nbits=4``: matrices, instance and opened assignment of
   the JAX package's (``fixtures/torch_online_4b_3p.npz``,
@@ -24,14 +25,15 @@ import pytest
 import torch
 
 from fixtures import make_torch_online_fixture as OF
-from torch_parity import CPU, check_circuit, fewer_attempts, fp_to_torch
+from fixtures import make_torch_xla_fixture as XF
+from torch_parity import CPU, check_circuit, fewer_attempts
 from zkmpc_tpu_torch import inputs as IN
 from zkmpc_tpu_torch.circuits import my_circuit
 from zkmpc_tpu_torch.cli import online as ON
 from zkmpc_tpu_torch.crypto import elgamal, pedersen
 from zkmpc_tpu_torch.mpc import te as TE
 from zkmpc_tpu_torch.mpc.share import MpcContext, MpcFp, king_share, mpc_scope
-from zkmpc_tpu_torch.ops.limbs import FR, FpArray
+from zkmpc_tpu_torch.ops.limbs import FR, FpArray, limbs_to_ints
 from zkmpc_tpu_torch.parallel.transport import StackedTransport
 from zkmpc_tpu_torch.snark.r1cs import ConstraintSystem
 from zkmpc_tpu_torch.spec import curves as SC
@@ -136,23 +138,19 @@ def test_input_protocol_matches_reference_formula(tmp_path):
         ON.run("unused.json", party_id=0, device=CPU)
 
 
+#: the values of `test_inputs_match_reference`'s `input_share`, owner 1,
+#: whose JAX shares and mask draws under ``PRNGKey(4)`` are in
+#: ``fixtures/torch_xla.npz`` (`fixtures/make_torch_xla_fixture.py`)
+INPUT_SHARE_VALS = [11, P - 3]
+
+
 def test_inputs_match_reference():
     """The cases of ``tests/test_inputs.py``; `input_share` under the JAX
     package's mask draws gives its shares."""
-    import jax
-    from zkmpc_tpu import inputs as JIN
-    from zkmpc_tpu.mpc import rand as JR
-    from zkmpc_tpu.mpc.share import MpcContext as JCtx
-    from zkmpc_tpu.mpc.share import mpc_scope as jscope
-    from zkmpc_tpu.ops.limbs import FR as JFR
-    from zkmpc_tpu.ops.limbs import FpArray as JFp
-    from zkmpc_tpu.parallel.transport import StackedTransport as JST
-    key = jax.random.PRNGKey(4)
-    vals = [11, P - 3]
-    with jscope(JCtx(JST(N_PARTIES), backend="semi")):
-        want = JIN.input_share(JFp.from_int(JFR, np.asarray(vals, dtype=object)), 1, key)
-        want = [int(v) for v in np.asarray(want.value.to_ints()).reshape(-1)]
-    mask = fp_to_torch(JR.uniform_fp(key, JFR, (N_PARTIES - 1, 2)))
+    want_ints, mask_limbs, mask_bound = XF.ref("input_share")
+    want = [int(v) for v in limbs_to_ints(want_ints)]
+    mask = FpArray(torch.as_tensor(mask_limbs), FR, int(mask_bound))
+    vals = INPUT_SHARE_VALS
     gen = torch.Generator().manual_seed(2)
     with _scope():
         sh = IN.input_share(_fr(vals), 1, None, mask=mask)

@@ -13,13 +13,13 @@ import pytest
 import torch
 
 from fixtures import make_torch_pedersen_fixture as PF
+from fixtures import make_torch_xla_fixture as XF
 from torch_parity import CPU, check_circuit, fewer_attempts
-from zkmpc_tpu.crypto import pedersen as JPD
 from zkmpc_tpu_torch.crypto import pedersen as TPD
 from zkmpc_tpu_torch.mpc import te as TE
 from zkmpc_tpu_torch.mpc.share import MpcContext, king_share, mpc_scope
 from zkmpc_tpu_torch.ops import msm as OM
-from zkmpc_tpu_torch.ops.limbs import FR, FpArray
+from zkmpc_tpu_torch.ops.limbs import FR, FpArray, limbs_to_ints
 from zkmpc_tpu_torch.parallel.transport import StackedTransport
 from zkmpc_tpu_torch.snark import driver, groth16
 from zkmpc_tpu_torch.spec import curves as SC
@@ -35,16 +35,31 @@ def _fr(vals):
     return FpArray.from_int(FR, np.asarray(vals, dtype=object), device=CPU)
 
 
+#: the cases of `test_generators_and_public_commitment_match_reference`:
+#: generator seed, commitment message and randomness, CRH width and input
+PP_SEED, COM_M, COM_R = 7, 123456789, 0x5A5A5A5A5A
+CRH_BITS, CRH_INPUT = 6, [1, 0, 1, 1, 0, 1]
+
+
+def _points_of(limbs):
+    """Integer limbs [k, 2, n] -> affine (x, y) int pairs."""
+    ints = limbs_to_ints(limbs)
+    return [(ints[2 * i], ints[2 * i + 1]) for i in range(len(ints) // 2)]
+
+
 def test_generators_and_public_commitment_match_reference():
-    got, want = TPD.PedersenParams.sample(7), JPD.PedersenParams.sample(7)
-    assert got.generators == want.generators and got.blind_base == want.blind_base
+    """The generators, a commitment, the CRH generators and a CRH value are
+    the JAX package's (from ``fixtures/torch_xla.npz``,
+    `fixtures/make_torch_xla_fixture.py`)."""
+    gens, (blind,), (com,), crh_gens, (crh,) = (
+        _points_of(a) for a in XF.ref("pedersen_params"))
+    got = TPD.PedersenParams.sample(PP_SEED)
+    assert got.generators == gens and got.blind_base == blind
     assert all(SC.te_is_on_curve(g) for g in got.generators[:8])
-    m, r = 123456789, 0x5A5A5A5A5A
-    assert TPD.commit_public_ints(got, m, r) == JPD.commit_public_ints(want, m, r)
-    cp, jcp = TPD.CrhParams.sample(6), JPD.CrhParams.sample(6)
-    assert cp.generators == jcp.generators
-    bits = [1, 0, 1, 1, 0, 1]
-    assert TPD.crh_public_ints(cp, bits) == JPD.crh_public_ints(jcp, bits)
+    assert TPD.commit_public_ints(got, COM_M, COM_R) == com
+    cp = TPD.CrhParams.sample(CRH_BITS)
+    assert cp.generators == crh_gens
+    assert TPD.crh_public_ints(cp, CRH_INPUT) == crh
 
 
 def test_mpc_commitment_and_te_points_match_spec():

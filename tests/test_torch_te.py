@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from fixtures import make_torch_uint8_fixture as UF
+from fixtures import make_torch_xla_fixture as XF
 from torch_parity import CPU, limbs_np, te_point_to_jax, te_point_to_torch
 from zkmpc_tpu.ops import curve as JC
 from zkmpc_tpu.utils import timer as JT
@@ -112,16 +113,20 @@ def test_te_points_carry_across_packages():
     """A JAX TEPoint carried to the port and back (`torch_parity`): the
     port's te_add of carried points equals the JAX package's, limb for
     limb."""
-    pts = [SC.te_scalar_mul(SC.TE_GEN, k) for k in (5, 6, 7)]
+    pts = _carried_points()
     jp = JC.TEPoint.from_affine_ints(pts)
     tp = te_point_to_torch(jp)
     assert tp.to_affine_ints() == pts
     back = te_point_to_jax(tp)
     np.testing.assert_array_equal(limbs_np(back.t.limbs), limbs_np(jp.t.limbs))
-    want = JC.te_add(jp, jp)
+    # the JAX package's te_add of the same points, from fixtures/torch_xla.npz
     got = C.te_add(tp, tp)
-    for g, w in zip(got.coords(), (want.x, want.y, want.t, want.z)):
-        np.testing.assert_array_equal(g.limbs.numpy(), limbs_np(w.limbs))
+    for g, w in zip(got.coords(), XF.ref("te_add"), strict=True):
+        np.testing.assert_array_equal(g.limbs.numpy(), w)
+
+
+def _carried_points():
+    return [SC.te_scalar_mul(SC.TE_GEN, k) for k in (5, 6, 7)]
 
 
 def _timer_script(T):

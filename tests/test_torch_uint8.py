@@ -9,17 +9,17 @@ limb or value for value.  The JAX package synthesizes the byte circuit
 eagerly, and its byte and conversion cases take seconds of XLA compiles,
 so the tier-1 tests read its side from a fixture
 (`fixtures/make_torch_uint8_fixture.py`); a `slow` test regenerates it.
-`fp_from_digits` runs the JAX side live under `jax.jit`.
+`fp_from_digits` reads the JAX side from ``fixtures/torch_xla.npz``
+(`fixtures/make_torch_xla_fixture.py`).
 """
 
-import jax
 import numpy as np
 import pytest
 import torch
 
 from fixtures import make_torch_uint8_fixture as UF
-from torch_parity import ATTEMPTS, CPU, SPECS, check_circuit, limbs_np, rand_ints
-from zkmpc_tpu.ops import limbs as JL
+from fixtures import make_torch_xla_fixture as XF
+from torch_parity import ATTEMPTS, CPU, SPECS, check_circuit, rand_ints
 from zkmpc_tpu_torch import inputs as IN
 from zkmpc_tpu_torch.mpc import bits as TB
 from zkmpc_tpu_torch.mpc.share import (PUBLIC, MpcContext, MpcFp, king_share,
@@ -148,19 +148,23 @@ def test_against_live_reference():
 def test_fp_from_digits_matches_reference(pair):
     """Canonical digits of numpy-seeded integers (the source field's width,
     and a 3-digit one) re-embedded in the target field: the JAX package's
-    limbs, and the integers mod the target's p."""
-    (_, src), (jdst, dst) = SPECS[pair[0]], SPECS[pair[1]]
+    limbs (from ``fixtures/torch_xla.npz``, `fixtures/make_torch_xla_fixture.py`),
+    and the integers mod the target's p."""
+    (_, src), (_, dst) = SPECS[pair[0]], SPECS[pair[1]]
+    vals, digits, short = _digit_inputs(src)
+    got = [fp_from_digits(dst, torch.as_tensor(d)) for d in (digits, short)]
+    for g, w in zip(got, XF.ref(f"fp_from_digits.{pair[0]}.{pair[1]}"), strict=True):
+        np.testing.assert_array_equal(g.limbs.numpy(), w)
+    assert [int(v) for v in got[0].to_ints()] == [v % dst.p for v in vals]
+
+
+def _digit_inputs(src):
+    """Numpy-seeded integers below ``src``'s p, their canonical digits and
+    the first three digits (int64)."""
     rng = np.random.default_rng(5)
     vals = rand_ints(rng, src.p, 6) + [src.p - 1, 0]
     digits = np.stack([int_to_limbs(v, src.nlimbs) for v in vals]).astype(np.int64)
-    short = digits[:, :3]
-    want = jax.jit(lambda d, s: (JL.fp_from_digits(jdst, d).limbs,
-                                 JL.fp_from_digits(jdst, s).limbs))(
-        digits.astype(np.uint32), short.astype(np.uint32))
-    got = [fp_from_digits(dst, torch.as_tensor(d)) for d in (digits, short)]
-    for g, w in zip(got, want):
-        np.testing.assert_array_equal(g.limbs.numpy(), limbs_np(w))
-    assert [int(v) for v in got[0].to_ints()] == [v % dst.p for v in vals]
+    return vals, digits, digits[:, :3]
 
 
 def test_modulus_conversion_matches_reference(fx):

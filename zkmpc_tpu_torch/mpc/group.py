@@ -24,7 +24,7 @@ from ..ops.curve import (SWPoint, _point_bound2, _stack_points, sw_add_complete,
                          sw_scalar_mul)
 from ..ops.limbs import FpArray
 from ..parallel import transport as T
-from .share import PUBLIC, SHARED, MpcFp, ctx
+from .share import _CTX, PUBLIC, SHARED, MpcFp, ctx
 
 __all__ = ["MpcSWPoint", "mpc_msm", "mpc_msm_many", "scale_many", "scale_sum",
            "with_mac_from_public"]
@@ -192,16 +192,32 @@ def mpc_msm(bases: SWPoint, scalars: MpcFp) -> MpcSWPoint:
     return mpc_msm_many([bases], [scalars])[0]
 
 
+#: calls of `mpc_msm_many` (and so `mpc_msm`) in this process: with a
+#: chips group each is one gather over it
+MSM_CALLS = 0
+
+
 def mpc_msm_many(bases_list, scalars_list) -> list:
     """k MSMs of public base sets with shared scalar vectors, fused into
     one call (`ops/msm.py:sw_msm_multi`); MAC'd scalars add their MAC MSMs
-    to the same call."""
+    to the same call.  Where the context carries a chips group and the
+    bases are unbatched ([N] each, the JAX package's rule), each chip takes
+    its block of every MSM, still fused into one call, and the partials
+    meet in one gather over the chips
+    (`parallel.sharded.replicated_sharded_sw_msms`)."""
+    global MSM_CALLS
+    MSM_CALLS += 1
     k = len(bases_list)
     macs = [s.mac for s in scalars_list]
     with_mac = all(m is not None for m in macs)
     bases = list(bases_list) * (2 if with_mac else 1)
     scal = [s.value for s in scalars_list] + (macs if with_mac else [])
-    if len(bases) == 1:
+    c = _CTX.get()
+    chips = None if c is None else c.chips
+    if chips is not None and all(len(b.shape) == 1 for b in bases):
+        from ..parallel.sharded import replicated_sharded_sw_msms
+        outs = replicated_sharded_sw_msms(bases, scal, chips)
+    elif len(bases) == 1:
         outs = [M.sw_msm(bases[0], scal[0])]
     else:
         outs = M.sw_msm_multi(bases, scal)

@@ -52,10 +52,15 @@ class MpcContext:
     draw only after the openings, from a commit-then-open coin toss
     (`rand.coin_toss`), so no party can predict them.  ``rho_bits``:
     optional injected raw draws of the field check, one (hi, lo) pair per
-    opening in order (see `rand.uniform_fp`), in place of the toss."""
+    opening in order (see `rand.uniform_fp`), in place of the toss.
+    ``chips``: the party's `parallel.sharded.ChipsGroup` where a party runs
+    on several chips (the JAX package's ``chips_axis``/``n_chips``): the
+    MSMs of public bases then split their point range across it
+    (`group.mpc_msm_many`)."""
 
     def __init__(self, transport: T.Transport, backend: str = "semi",
-                 triple_source=None, alpha_share: FpArray | None = None, rho_bits=None):
+                 triple_source=None, alpha_share: FpArray | None = None, rho_bits=None,
+                 chips=None):
         if backend not in ("semi", "spdz"):
             raise ValueError(f"unknown MPC backend {backend!r}")
         if backend == "spdz" and alpha_share is None:
@@ -69,6 +74,7 @@ class MpcContext:
         self.triple_source = triple_source or DummyTripleSource()
         self.alpha_share = alpha_share
         self.rho_bits = rho_bits
+        self.chips = chips
         self._mac_accum = None       # random linear combination of residues
         self._mac_count = 0
         # field residues awaiting their rhos, and their elements

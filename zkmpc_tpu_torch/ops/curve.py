@@ -17,17 +17,20 @@ import torch
 
 from .. import params
 from .fp2 import Fp2Array
-from .limbs import EDFR, FQ, FR, FpArray
+from .limbs import EDFR, FQ, FR, FpArray, mul_many
 
 
 def _field_select(cond, a, b):
     return type(a).select(cond, a, b)
 
 
+def _fp_parts(f):
+    """A coordinate's `FpArray` parts: itself, or an Fq2 element's c0, c1."""
+    return [f] if isinstance(f, FpArray) else _fp_parts(f.c0) + _fp_parts(f.c1)
+
+
 def _coord_leaves(f):
-    if isinstance(f, FpArray):
-        return [f.limbs]
-    return _coord_leaves(f.c0) + _coord_leaves(f.c1)
+    return [x.limbs for x in _fp_parts(f)]
 
 
 def _map_coord(f, fn):
@@ -154,38 +157,55 @@ class SWPoint:
         return [None if inf[i] else (xs[i], ys[i]) for i in range(xs.size)]
 
 
+def _tighten_coords(*coords):
+    """`tighten` of several coordinates, their Montgomery multiplies by one
+    in one stacked call (`limbs.mul_many`)."""
+    loose = [f for c in coords for f in _fp_parts(c) if f.bound > 2]
+    if not loose:
+        return coords
+    spec, dev = loose[0].spec, loose[0].device
+    one = FpArray(spec.const("one_limbs", dev), spec, 1)
+    tight = iter(mul_many([(f, one) for f in loose]))
+
+    def rebuild(f):
+        if isinstance(f, Fp2Array):
+            return Fp2Array(rebuild(f.c0), rebuild(f.c1))
+        return next(tight) if f.bound > 2 else f
+    return tuple(rebuild(c) for c in coords)
+
+
 def sw_double(p: SWPoint) -> SWPoint:
-    """dbl-2009-l (a=0).  Correctly keeps infinity at infinity."""
-    a = p.x.square()
-    b = p.y.square()
-    c = b.square()
-    d = ((p.x + b).square() - a - c).double()
+    """dbl-2009-l (a=0).  Correctly keeps infinity at infinity.  The
+    products of one dependency level go through one stacked Montgomery
+    multiply (`limbs.mul_many`), each with the limbs of its own ``*``."""
+    a, b, yz = mul_many([(p.x, None), (p.y, None), (p.y, p.z)])
     e = a.smul(3)
-    f = e.square()
+    c, xb2, f = mul_many([(b, None), (p.x + b, None), (e, None)])
+    d = (xb2 - a - c).double()
     x3 = f - d.double()
     y3 = e * (d - x3) - c.smul(8)
-    z3 = (p.y * p.z).double()
-    return SWPoint(x3.tighten(), y3.tighten(), z3.tighten(), p.inf)
+    z3 = yz.double()
+    x3, y3, z3 = _tighten_coords(x3, y3, z3)
+    return SWPoint(x3, y3, z3, p.inf)
 
 
 def _sw_add_core(p: SWPoint, q: SWPoint):
-    """add-2007-bl for two finite points; returns result + (h, r) for case tests."""
-    z1z1 = p.z.square()
-    z2z2 = q.z.square()
-    u1 = p.x * z2z2
-    u2 = q.x * z1z1
-    s1 = p.y * q.z * z2z2
-    s2 = q.y * p.z * z1z1
+    """add-2007-bl for two finite points; returns result + (h, r) for case
+    tests.  The products of one dependency level go through one stacked
+    Montgomery multiply (`limbs.mul_many`), each with the limbs of its own
+    ``*``."""
+    z1z1, z2z2, y1z2, y2z1, zz = mul_many([(p.z, None), (q.z, None), (p.y, q.z),
+                                           (q.y, p.z), (p.z + q.z, None)])
+    u1, u2, s1, s2 = mul_many([(p.x, z2z2), (q.x, z1z1), (y1z2, z2z2), (y2z1, z1z1)])
     h = u2 - u1
-    i = h.double().square()
-    j = h * i
     r = (s2 - s1).double()
-    v = u1 * i
-    x3 = r.square() - j - v.double()
-    y3 = r * (v - x3) - (s1 * j).double()
-    z3 = ((p.z + q.z).square() - z1z1 - z2z2) * h
-    return SWPoint(x3.tighten(), y3.tighten(), z3.tighten(),
-                   p.inf & q.inf), h, r
+    i, rr, z3 = mul_many([(h.double(), None), (r, None), (zz - z1z1 - z2z2, h)])
+    j, v = mul_many([(h, i), (u1, i)])
+    x3 = rr - j - v.double()
+    ry, s1j = mul_many([(r, v - x3), (s1, j)])
+    y3 = ry - s1j.double()
+    x3, y3, z3 = _tighten_coords(x3, y3, z3)
+    return SWPoint(x3, y3, z3, p.inf & q.inf), h, r
 
 
 def sw_add_unsafe(p: SWPoint, q: SWPoint) -> SWPoint:
@@ -236,6 +256,27 @@ def _bcast_sw(points: SWPoint, shape) -> SWPoint:
                    points.z.broadcast_to(shape), points.inf.expand(shape))
 
 
+def scalar_digits(scalars: FpArray, nbits: int, w: int):
+    """The scalars' canonical w-bit digits [..., ceil(nbits / w)], low
+    digit first."""
+    ndig = -(-nbits // w)
+    bits = scalar_bits(scalars, nbits)                  # [..., nbits]
+    bits = torch.nn.functional.pad(bits, (0, ndig * w - nbits))
+    weights = 1 << torch.arange(w, device=bits.device, dtype=bits.dtype)
+    return (bits.reshape(tuple(bits.shape[:-1]) + (ndig, w)) * weights).sum(dim=-1)
+
+
+def window_table(base: SWPoint, w: int) -> SWPoint:
+    """T[d] = d * base for d < 2^w, [2^w, *base.shape]: a double, then
+    adds of base to T[d - 1] (which is neither base nor -base for
+    2 < d < 2^w)."""
+    base = _point_bound2(base.tighten())
+    table = [SWPoint.infinity_like(base), base, sw_double(base)]
+    while len(table) < 1 << w:
+        table.append(sw_add_unsafe(table[-1], base))
+    return _stack_points([_point_bound2(t) for t in table])
+
+
 def sw_scalar_mul(points: SWPoint, scalars: FpArray, nbits: int | None = None
                   ) -> SWPoint:
     """Batched fixed-window ladder: out_i = scalars_i * points_i, the points
@@ -252,19 +293,11 @@ def sw_scalar_mul(points: SWPoint, scalars: FpArray, nbits: int | None = None
     still goes through `sw_add_complete`."""
     nbits = nbits or scalars.spec.p.bit_length()
     w = 4
-    ndig = -(-nbits // w)
-    bits = scalar_bits(scalars, nbits)                  # [..., nbits]
-    bits = torch.nn.functional.pad(bits, (0, ndig * w - nbits))
-    weights = 1 << torch.arange(w, device=bits.device, dtype=bits.dtype)
-    digits = (bits.reshape(tuple(bits.shape[:-1]) + (ndig, w)) * weights).sum(dim=-1)
-    base = _point_bound2(points.tighten())
-    table = [SWPoint.infinity_like(base), base, sw_double(base)]
-    while len(table) < 1 << w:
-        table.append(sw_add_unsafe(table[-1], base))
-    table = _stack_points([_point_bound2(t) for t in table])   # [2^w, *pshape]
+    digits = scalar_digits(scalars, nbits, w)
+    table = window_table(points, w)                             # [2^w, *pshape]
     shape = tuple(torch.broadcast_shapes(tuple(points.shape), tuple(scalars.shape)))
     acc = None
-    for j in range(ndig - 1, -1, -1):
+    for j in range(digits.shape[-1] - 1, -1, -1):
         term = _gather_points(table, digits[..., j].expand(shape), shape)
         if acc is None:
             acc = term
@@ -272,6 +305,27 @@ def sw_scalar_mul(points: SWPoint, scalars: FpArray, nbits: int | None = None
         for _ in range(w):
             acc = sw_double(acc)
         acc = sw_add_unsafe(acc, term) if j else sw_add_complete(acc, term)
+    return acc
+
+
+def sw_fixed_base_mul(window_bases: SWPoint, scalars: FpArray, w: int) -> SWPoint:
+    """A fixed-base comb: out_i = scalars_i * G for scalars [k], from the
+    window bases B_j = 2^(w j) G, [ceil(nbits / w)] with nbits the scalar
+    field's.  Each product is the sum over the windows of d_j * B_j, read
+    from one table of every window (`window_table`): ceil(nbits / w) - 1
+    adds on the batch, where a ladder takes nbits doublings as well.  The
+    partial sum m*G and the next term t*G have m < 2^(w j) <= t or one is
+    infinity, and m + t is at most the canonical scalar, below the order,
+    so the adds never meet equal or opposite points."""
+    nbits = scalars.spec.p.bit_length()
+    digits = scalar_digits(scalars, nbits, w)                   # [k, ndig]
+    assert digits.shape[-1] == window_bases.shape[0], (digits.shape, window_bases.shape)
+    table = window_table(window_bases, w)                       # [2^w, ndig]
+    shape = tuple(scalars.shape)
+    acc = None
+    for j in range(digits.shape[-1]):
+        term = _gather_points(table[:, j], digits[..., j], shape)
+        acc = term if acc is None else sw_add_unsafe(acc, term)
     return acc
 
 

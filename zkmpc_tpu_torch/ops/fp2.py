@@ -12,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .limbs import FQ, FpArray
+from .limbs import FQ, FpArray, mul_many
 
 
 class Fp2Array:
@@ -82,19 +82,35 @@ class Fp2Array:
         return Fp2Array(-self.c0, -self.c1)
 
     def __mul__(self, other):
+        return mul_many([(self, other)])[0]
+
+    def _mul_plan(self, other):
+        """`limbs.mul_many`'s plan of ``self * other`` (``other`` None: the
+        square): one stacked pair of Fq operands and the result from it."""
+        if other is None:
+            # c0 = (a0 + a1)(a0 - 5 a1) + 4 a0 a1, c1 = 2 a0 a1; the two Fq
+            # products as one stacked Montgomery multiply
+            s = FpArray.stack([self.c0, self.c0 + self.c1], axis=0)
+            t = FpArray.stack([self.c1, self.c0 - self.c1.smul(5)], axis=0)
+
+            def finish(prods):
+                v0, w = prods[0][0], prods[0][1]
+                return Fp2Array(w + v0.smul(4), v0.double())
+            return [s._mul_operands(t)], finish
         # Karatsuba: v0 = a0 b0, v1 = a1 b1;
         # c0 = v0 - 5 v1, c1 = (a0+a1)(b0+b1) - v0 - v1, the three Fq
         # products as one stacked Montgomery multiply
-        shp = tuple(torch.broadcast_shapes(self.shape, other.shape))
+        shp = (self.shape if self.shape == other.shape
+               else tuple(torch.broadcast_shapes(self.shape, other.shape)))
         a0, a1 = self.c0.broadcast_to(shp), self.c1.broadcast_to(shp)
         b0, b1 = other.c0.broadcast_to(shp), other.c1.broadcast_to(shp)
         s = FpArray.stack([a0, a1, a0 + a1], axis=0)
         t = FpArray.stack([b0, b1, b0 + b1], axis=0)
-        v = s * t
-        v0, v1, v01 = v[0], v[1], v[2]
-        c0 = v0 - v1.smul(self._NR_NEG)
-        c1 = v01 - v0 - v1
-        return Fp2Array(c0, c1)
+
+        def finish(prods):
+            v0, v1, v01 = prods[0][0], prods[0][1], prods[0][2]
+            return Fp2Array(v0 - v1.smul(self._NR_NEG), v01 - v0 - v1)
+        return [s._mul_operands(t)], finish
 
     def smul(self, k: int):
         return Fp2Array(self.c0.smul(k), self.c1.smul(k))
@@ -103,14 +119,7 @@ class Fp2Array:
         return self.smul(2)
 
     def square(self):
-        # c0 = (a0 + a1)(a0 - 5 a1) + 4 a0 a1, c1 = 2 a0 a1; the two Fq
-        # products as one stacked Montgomery multiply
-        s = FpArray.stack([self.c0, self.c0 + self.c1], axis=0)
-        t = FpArray.stack([self.c1, self.c0 - self.c1.smul(5)], axis=0)
-        v = s * t
-        v0, w = v[0], v[1]
-        c0 = w + v0.smul(4)
-        return Fp2Array(c0, v0.double())
+        return mul_many([(self, None)])[0]
 
     def inv(self):
         # 1/(a0 + a1 u) = (a0 - a1 u) / (a0^2 + 5 a1^2)

@@ -15,6 +15,7 @@ The Montgomery multiply (`_mont_mul_limbs`) routes to the CUDA kernel
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
@@ -405,8 +406,9 @@ class FpArray:
     def __neg__(self):
         return FpArray.zeros(self.spec, (), self.device) - self
 
-    def __mul__(self, other):
-        other = self._coerce(other)
+    def _mul_operands(self, other):
+        """The operands of ``self * other``: where their bounds' product is
+        over the budget, the one with the larger bound is tightened first."""
         spec = self.spec
         a, b = self, other
         if a.bound * b.bound > spec.mul_bound_budget:
@@ -416,8 +418,17 @@ class FpArray:
                 b = b.tighten()
             if a.bound * b.bound > spec.mul_bound_budget:
                 a, b = a.tighten(), b.tighten()
-        out = _mont_mul_limbs(spec, a.limbs, b.limbs)
-        return FpArray(out, spec, 2)
+        return a, b
+
+    def __mul__(self, other):
+        a, b = self._mul_operands(self._coerce(other))
+        return FpArray(_mont_mul_limbs(self.spec, a.limbs, b.limbs), self.spec, 2)
+
+    def _mul_plan(self, other):
+        """`mul_many`'s plan of ``self * other`` (``other`` None: the
+        square): its operand pairs and how their products give the result."""
+        return [self._mul_operands(self if other is None else self._coerce(other))], \
+            lambda prods: prods[0]
 
     def smul(self, k: int):
         """Multiply by a small nonnegative integer constant (k < 2**8)."""
@@ -526,6 +537,33 @@ class FpArray:
 
     def __repr__(self):
         return f"FpArray({self.spec.name}, shape={self.shape}, bound={self.bound})"
+
+
+def mul_many(pairs) -> list:
+    """The products ``a * b`` (``b`` None: ``a.square()``) of several
+    `FpArray` or `Fp2Array` pairs of one field, their Montgomery multiplies
+    stacked into one call: one kernel launch on the card, one pass of tensor
+    ops on a CPU, where the independent products of a point formula would
+    each take a call.  Each row's REDC is computed alone and each pair's
+    operands are tightened as its own ``*`` would, so every product has the
+    limbs that ``a * b`` gives."""
+    plans = [a._mul_plan(b) for a, b in pairs]
+    ops = [op for op_list, _ in plans for op in op_list]
+    spec = ops[0][0].spec
+    n = spec.nlimbs
+    if len(ops) == 1:
+        ((a, b),) = ops
+        prods = [FpArray(_mont_mul_limbs(spec, a.limbs, b.limbs), spec, 2)]
+    else:
+        shapes = [a.shape if a.shape == b.shape else
+                  tuple(torch.broadcast_shapes(a.shape, b.shape)) for a, b in ops]
+        lhs, rhs = (torch.cat([x.limbs.expand(s + (n,)).reshape(-1, n)
+                               for x, s in zip(side, shapes)])
+                    for side in zip(*ops))
+        out = torch.split(_mont_mul_limbs(spec, lhs, rhs), [math.prod(s) for s in shapes])
+        prods = [FpArray(o.reshape(s + (n,)), spec, 2) for o, s in zip(out, shapes)]
+    it = iter(prods)
+    return [finish([next(it) for _ in op_list]) for op_list, finish in plans]
 
 
 def fp_from_u32(spec: FieldSpec, vals) -> FpArray:

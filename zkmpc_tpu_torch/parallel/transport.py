@@ -214,8 +214,11 @@ class MeshTransport(OnePartyTransport):
     """One party of a ``torch.distributed`` process group, in this rank:
     share tensors keep a party axis of length 1 (the party's own row), as
     on a socket.  ``group``: the process group (None: the default one);
-    its rank is the party id and its size the party count.  ``device``:
-    where the rank computes; every result comes back there.
+    its rank is the party id and its size the party count; the peers'
+    global ranks come from the group, so it may be a sub-group of a larger
+    world (with ``n_chips`` chips a party, the party group of one chip
+    index, `parallel.mesh.run_parties`).  ``device``: where the rank
+    computes; every result comes back there.
 
     On gloo each collective copies the tensor to the host, runs there and
     copies the result back to ``device`` (gloo has no CUDA all-gather);
@@ -228,7 +231,7 @@ class MeshTransport(OnePartyTransport):
 
     kind = "mesh"
 
-    def __init__(self, group=None, device="cuda"):
+    def __init__(self, group=None, device="cuda", n_chips: int = 1):
         super().__init__()
         import torch.distributed as dist
         self._dist = dist
@@ -236,13 +239,16 @@ class MeshTransport(OnePartyTransport):
         self.backend = str(dist.get_backend(group))
         self.n_parties = dist.get_world_size(group)
         self.party_id = dist.get_rank(group)
+        self.n_chips = n_chips
         self.device = torch.device(device)
         check_backend(self.backend, [self.device])
         if self.backend == "nccl":
-            # the ranks may name one card differently: compare the cards
+            # the ranks may name one card differently: compare the cards of
+            # every rank of the world (each rank builds its transport at
+            # once), not only this party group's
             key = f"{socket.gethostname()}: {torch.cuda.get_device_properties(self.device).uuid}"
-            keys = [None] * self.n_parties
-            dist.all_gather_object(keys, key, group=group)
+            keys = [None] * dist.get_world_size()
+            dist.all_gather_object(keys, key)
             _one_device_a_rank(keys)
         self._wire_device = self.device if self.backend == "nccl" else torch.device("cpu")
 
@@ -250,7 +256,10 @@ class MeshTransport(OnePartyTransport):
         """The backend and the layout, for a log line."""
         where = ("each rank on its own device" if self.backend == "nccl"
                  else f"collectives through the host, results back on {self.device}")
-        return f"{self.backend}, {self.n_parties} ranks ({where})"
+        if self.n_chips == 1:
+            return f"{self.backend}, {self.n_parties} ranks ({where})"
+        return (f"{self.backend}, {self.n_parties} parties × {self.n_chips} chips, "
+                f"{self.n_parties * self.n_chips} ranks ({where})")
 
     def _peer(self, j: int) -> int:
         return j if self.group is None else self._dist.get_global_rank(self.group, j)

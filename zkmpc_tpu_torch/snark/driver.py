@@ -87,19 +87,20 @@ def deal(vals, n_parties: int, device="cuda"):
 
 def make_prove_fn(dpk: groth16.DeviceProvingKey, n_parties: int):
     """Returns (fn, example_args): fn(a_limbs, b_limbs, generator, r=None,
-    s=None, transport=None) -> proof arrays.  a_limbs/b_limbs: [P, n,
-    nlimbs] additive shares of the gate inputs (every party's; a transport
-    that plays one party takes its own rows); r/s: optional injected share
-    tensors.  ``transport``: the transport to run on (a fresh
-    StackedTransport by default)."""
+    s=None, transport=None, chips=None) -> proof arrays.  a_limbs/b_limbs:
+    [P, n, nlimbs] additive shares of the gate inputs (every party's; a
+    transport that plays one party takes its own rows); r/s: optional
+    injected share tensors.  ``transport``: the transport to run on (a
+    fresh StackedTransport by default); ``chips``: the party's
+    `parallel.sharded.ChipsGroup`, over which the prove's MSMs split."""
     pk = dpk.pk
     dev = dpk.device
     n_gates = pk.num_witness // 3
     mats = groth16.device_matrices_from_pk(pk, dev)
 
-    def step(a_limbs, b_limbs, generator, r=None, s=None, transport=None):
+    def step(a_limbs, b_limbs, generator, r=None, s=None, transport=None, chips=None):
         t = transport or T.StackedTransport(n_parties, dev)
-        with mpc_scope(MpcContext(t, backend="semi")):
+        with mpc_scope(MpcContext(t, backend="semi", chips=chips)):
             cs2 = ConstraintSystem(FR)
             a = MpcFp(FpArray(t.own_rows(a_limbs), FR, 2), SHARED)
             b = MpcFp(FpArray(t.own_rows(b_limbs), FR, 2), SHARED)

@@ -151,12 +151,21 @@ def setup_params(cs: ConstraintSystem, seed: int = 0):
                 matrices=(matA, matB, matC))
 
 
+#: bits of a window of the setup's fixed-base comb
+COMB_BITS = 4
+
+
 def _fixed_base_muls(gen_affine, g2: bool, scalars, device):
-    """[k * G for k in scalars] as a device point batch (batched ladder)."""
-    make = SWPoint.g2_from_affine_ints if g2 else SWPoint.g1_from_affine_ints
-    base = make([gen_affine], device)
+    """[k * G for k in scalars] as a device point batch: a fixed-base comb
+    (`ops.curve.sw_fixed_base_mul`) on window bases 2^(4j) G made on the
+    host."""
+    make, mul = ((SWPoint.g2_from_affine_ints, SC.g2_mul) if g2
+                 else (SWPoint.g1_from_affine_ints, SC.g1_mul))
+    bases = [gen_affine]
+    for _ in range(-(-FR.p.bit_length() // COMB_BITS) - 1):
+        bases.append(mul(bases[-1], 1 << COMB_BITS))
     s = FpArray.from_int(FR, np.asarray(scalars, dtype=object), device=device)
-    return OC.sw_scalar_mul(base[0], s)
+    return OC.sw_fixed_base_mul(make(bases, device), s, COMB_BITS)
 
 
 def _verifying_key(sp: dict) -> VerifyingKey:
@@ -203,8 +212,8 @@ def device_setup(cs: ConstraintSystem, seed: int = 0, device="cuda"
     dpk = DeviceProvingKey.__new__(DeviceProvingKey)
     dpk.pk = pk
     dpk.device = torch.device(device)
-    # the four G1 queries through one batched ladder (lanes are independent,
-    # so each point is what its own ladder gives)
+    # the four G1 queries through one batched comb (lanes are independent,
+    # so each point is what it would be alone)
     g1 = _fixed_base_muls(SC.G1_GEN, False, u + v + h_scalars + l_scalars, device)
     ends = [int(e) for e in np.cumsum([len(u), len(v), len(h_scalars), len(l_scalars)])]
     dpk.a_query, dpk.b_g1_query, dpk.h_query, l_query = (

@@ -11,7 +11,7 @@ polynomials stay batched tensors.
 - `setup` draws tau with ark's `Fp::rand` on the seeded ChaCha12 stream,
   as the reference does, but redraws while tau is 0 (the reference can
   return a zero trapdoor); the powers tau^i are host ints and the points
-  come from one batched fixed-base ladder on the device.
+  come from one batched fixed-base comb on the device.
 - Under SPDZ every coefficient tensor carries MAC shares; the layout maps
   (`_place`, `_pad_to`, `_slice`, `_broadcast_scalar`) and the NTTs run on
   value and MAC shares stacked on the party axis, one launch for both.
@@ -78,7 +78,7 @@ def _draw_tau(seed: int) -> int:
 
 def setup(max_degree: int, seed: int = 0, device="cuda") -> KzgSrs:
     """KZG universal setup of degree ``max_degree``: tau^i on the host, the
-    points tau^i * G on ``device`` in one batched ladder."""
+    points tau^i * G on ``device`` in one batched fixed-base comb."""
     tau = _draw_tau(seed)
     scalars, acc = [], 1
     for _ in range(max_degree + 1):
